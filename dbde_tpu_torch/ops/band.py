@@ -1,0 +1,242 @@
+"""The codec's main-path kernels: wrappers, plain versions and launch counts.
+
+Counterpart of the main-path entry points of
+:mod:`dbde_tpu.ops.pallas_band` (``encode_depths_kernel``,
+``encode_payload_kernel``, ``decode_band_kernel``, and the uniform
+depth-8 pair ``encode_payload_u8_kernel`` / ``decode_band_u8_kernel``).  The kernels are CUDA
+C++ in ``csrc/dbde_kernels.cu``; they read and write u8 frames (B, H, W)
+directly at any width, so none of the TPU's row folding, u32 image layout
+or 1024-wide padding exists here.
+
+Dispatch is by the device of the tensor given: a CPU tensor goes to the
+plain PyTorch version, a CUDA tensor to the kernel.  If the kernel fails to
+build or to launch, the wrapper raises; nothing falls back.  Each wrapper
+counts its kernel launches in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dbde_tpu.format import tile_grid
+
+from . import build
+from .bitpack import MAX_WORDS_PER_TILE, pack_words, tile_depths_mins, unpack_words_to_tiles
+from .payload import compact_payload, gather_windows
+from .tiling import pad_and_tile, untile
+
+# kernel launches per wrapper since the last reset_launches()
+LAUNCHES = {"encode_depths": 0, "encode_payload": 0, "decode": 0,
+            "encode_payload_u8": 0, "decode_u8": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# -- plain versions ----------------------------------------------------------
+
+
+def encode_depths_plain(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W) u8 → (depths, mins), each (B, T) u8."""
+    depth, mn = tile_depths_mins(pad_and_tile(images))
+    return depth.to(torch.uint8), mn
+
+
+def encode_payload_plain(images, depths, mins, offsets, out=None) -> torch.Tensor:
+    """Pack every tile at its depth and store its ``2*depth`` words at its
+    offset in ``out`` (B, S) u32 (default: zeroed (B, 16*T))."""
+    words = pack_words(pad_and_tile(images), depths, mins)
+    return compact_payload(words, depths, offsets, out)
+
+
+def decode_frames_plain(depths, mins, offsets, payload, H: int, W: int) -> torch.Tensor:
+    """(depths, mins (B, T) u8, offsets (B, T) i32, payload (B, S) u32) →
+    (B, H, W) u8 frames."""
+    tiles = unpack_words_to_tiles(depths, mins, gather_windows(payload, offsets))
+    return untile(tiles, H, W)
+
+
+def encode_payload_u8_plain(images, mins, out=None) -> torch.Tensor:
+    """Every tile at depth 8: tile t's residual bytes (pixel - min mod 256)
+    are words ``[16*t, 16*t + 16)`` of ``out`` (B, S) u32 (default (B, 16*T)).
+    Residual i is byte i of the tile's little-endian words, so the words are
+    the residual bytes viewed as u32."""
+    tiles = pad_and_tile(images)
+    B, T, _ = tiles.shape
+    words = (tiles - mins[..., None]).reshape(B, T * 64).view(torch.int32)  # u8 wraps
+    if out is None:
+        out = torch.empty((B, T * MAX_WORDS_PER_TILE), dtype=torch.uint32, device=images.device)
+    out.view(torch.int32)[:, : T * MAX_WORDS_PER_TILE] = words
+    return out
+
+
+def decode_frames_u8_plain(mins, payload, H: int, W: int) -> torch.Tensor:
+    """Inverse of :func:`encode_payload_u8_plain`: (mins (B, T) u8, payload
+    (B, S) u32 with S >= 16*T) → (B, H, W) u8 frames."""
+    B, T = mins.shape
+    words = payload.view(torch.int32)[:, : T * MAX_WORDS_PER_TILE].contiguous()
+    tiles = words.view(torch.uint8).reshape(B, T, 64) + mins[..., None]  # u8 wraps
+    return untile(tiles, H, W)
+
+
+# -- kernel wrappers ---------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {shape}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def _cuda_tiles(device: torch.device, B: int, H: int, W: int) -> int:
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}: use a CPU or CUDA tensor")
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the kernels' grid limit of 65535 frames")
+    h, w = tile_grid(W, H)
+    return h * w
+
+
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):  # the launch's device; restored after
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        msg = build.load().dbde_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
+    LAUNCHES[name] += 1
+
+
+def _vec(t: torch.Tensor, W: int) -> int:
+    """Whole rows of 8-byte words: the kernels may load/store a tile row as one u64."""
+    return int(W % 8 == 0 and t.data_ptr() % 8 == 0)
+
+
+def _pvec(payload: torch.Tensor) -> int:
+    """16-byte-aligned rows: the uniform kernels may move 4 payload words at once."""
+    return int(payload.data_ptr() % 16 == 0 and payload.shape[1] % 4 == 0)
+
+
+def encode_depths(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encode phase A: (B, H, W) u8 frames → per-tile (depths, mins), each
+    (B, T) u8.  Kernel: ``dbde_encode_depths``."""
+    if images.device.type == "cpu":
+        return encode_depths_plain(images)
+    B, H, W = images.shape
+    T = _cuda_tiles(images.device, B, H, W)
+    _check("images", images, torch.uint8, (B, H, W), images.device)
+    depths = torch.empty((B, T), dtype=torch.uint8, device=images.device)
+    mins = torch.empty_like(depths)
+    if B:
+        lib = build.load()
+        _launch("encode_depths", lib.dbde_encode_depths, images.device,
+                images.data_ptr(), depths.data_ptr(), mins.data_ptr(), B, H, W,
+                _vec(images, W))
+    return depths, mins
+
+
+def encode_payload(images: torch.Tensor, depths: torch.Tensor, mins: torch.Tensor,
+                   offsets: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Encode phase B: pack each tile and store its ``2*depth`` u32 words at
+    ``out[b, offsets[b, t]:]``.  ``offsets`` is the exclusive scan of
+    ``2*depths`` (:func:`..payload.word_offsets`).  ``out`` is (B, S) u32
+    with S ≥ 16*T; the default is uninitialised (B, 16*T).  Words at or
+    past ``2*n64`` of each frame are left as they were.
+    Kernel: ``dbde_encode_payload``."""
+    if images.device.type == "cpu":
+        return encode_payload_plain(images, depths, mins, offsets, out)
+    B, H, W = images.shape
+    dev = images.device
+    T = _cuda_tiles(dev, B, H, W)
+    _check("images", images, torch.uint8, (B, H, W), dev)
+    _check("depths", depths, torch.uint8, (B, T), dev)
+    _check("mins", mins, torch.uint8, (B, T), dev)
+    _check("offsets", offsets, torch.int32, (B, T), dev)
+    if out is None:
+        out = torch.empty((B, T * MAX_WORDS_PER_TILE), dtype=torch.uint32, device=dev)
+    elif out.ndim != 2 or out.shape[1] < T * MAX_WORDS_PER_TILE:
+        raise ValueError(f"out must be (B, S) with S >= {T * MAX_WORDS_PER_TILE}, got {tuple(out.shape)}")
+    _check("out", out, torch.uint32, (B, out.shape[1]), dev)
+    if B:
+        lib = build.load()
+        _launch("encode_payload", lib.dbde_encode_payload, dev,
+                images.data_ptr(), depths.data_ptr(), mins.data_ptr(), offsets.data_ptr(),
+                out.data_ptr(), B, H, W, out.shape[1], _vec(images, W))
+    return out
+
+
+def decode_frames(depths: torch.Tensor, mins: torch.Tensor, offsets: torch.Tensor,
+                  payload: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Decode: (depths, mins (B, T) u8, offsets (B, T) i32, payload (B, S)
+    u32 with S ≥ 2*n64) → (B, H, W) u8 frames.  Reads only each tile's
+    ``2*depth`` words.  Kernel: ``dbde_decode``."""
+    if depths.device.type == "cpu":
+        return decode_frames_plain(depths, mins, offsets, payload, H, W)
+    B = depths.shape[0]
+    dev = depths.device
+    T = _cuda_tiles(dev, B, H, W)
+    _check("depths", depths, torch.uint8, (B, T), dev)
+    _check("mins", mins, torch.uint8, (B, T), dev)
+    _check("offsets", offsets, torch.int32, (B, T), dev)
+    if payload.ndim != 2 or payload.shape[1] < 1:
+        raise ValueError(f"payload must be (B, S) with S >= 1, got {tuple(payload.shape)}")
+    _check("payload", payload, torch.uint32, (B, payload.shape[1]), dev)
+    out = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
+    if B:
+        lib = build.load()
+        _launch("decode", lib.dbde_decode, dev,
+                depths.data_ptr(), mins.data_ptr(), offsets.data_ptr(), payload.data_ptr(),
+                out.data_ptr(), B, H, W, payload.shape[1], _vec(out, W))
+    return out
+
+
+def encode_payload_u8(images: torch.Tensor, mins: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """Encode phase B for a batch whose tiles are all depth 8: tile t's 16
+    u32 words at ``out[b, 16*t:]``, no offsets needed.  ``out`` is (B, S)
+    u32 with S ≥ 16*T; the default is uninitialised (B, 16*T).
+    Kernel: ``dbde_encode_payload_u8``."""
+    if images.device.type == "cpu":
+        return encode_payload_u8_plain(images, mins, out)
+    B, H, W = images.shape
+    dev = images.device
+    T = _cuda_tiles(dev, B, H, W)
+    _check("images", images, torch.uint8, (B, H, W), dev)
+    _check("mins", mins, torch.uint8, (B, T), dev)
+    if out is None:
+        out = torch.empty((B, T * MAX_WORDS_PER_TILE), dtype=torch.uint32, device=dev)
+    elif out.ndim != 2 or out.shape[1] < T * MAX_WORDS_PER_TILE:
+        raise ValueError(f"out must be (B, S) with S >= {T * MAX_WORDS_PER_TILE}, got {tuple(out.shape)}")
+    _check("out", out, torch.uint32, (B, out.shape[1]), dev)
+    if B:
+        lib = build.load()
+        _launch("encode_payload_u8", lib.dbde_encode_payload_u8, dev,
+                images.data_ptr(), mins.data_ptr(), out.data_ptr(), B, H, W, out.shape[1],
+                _vec(images, W), _pvec(out))
+    return out
+
+
+def decode_frames_u8(mins: torch.Tensor, payload: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Decode a batch whose tiles are all depth 8: (mins (B, T) u8, payload
+    (B, S) u32 with S ≥ 16*T) → (B, H, W) u8 frames.
+    Kernel: ``dbde_decode_u8``."""
+    if mins.device.type == "cpu":
+        return decode_frames_u8_plain(mins, payload, H, W)
+    B = mins.shape[0]
+    dev = mins.device
+    T = _cuda_tiles(dev, B, H, W)
+    _check("mins", mins, torch.uint8, (B, T), dev)
+    if payload.ndim != 2 or payload.shape[1] < T * MAX_WORDS_PER_TILE:
+        raise ValueError(f"payload must be (B, S) with S >= {T * MAX_WORDS_PER_TILE}, "
+                         f"got {tuple(payload.shape)}")
+    _check("payload", payload, torch.uint32, (B, payload.shape[1]), dev)
+    out = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
+    if B:
+        lib = build.load()
+        _launch("decode_u8", lib.dbde_decode_u8, dev,
+                mins.data_ptr(), payload.data_ptr(), out.data_ptr(), B, H, W,
+                payload.shape[1], _vec(out, W), _pvec(payload))
+    return out

@@ -1,0 +1,108 @@
+"""Device time by kernel on the codec's encode and decode paths.
+
+    python3 -m dbde_tpu_torch.profile_paths [--iters 20] [--batch 16] [--size 2048]
+
+Needs a CUDA GPU.  For camera content (mixed depths: K1, scan, K2 / scan,
+K3) and random content (every tile depth 8: K1, K4 / K5), runs
+``DbdeCodec.encode`` and ``DbdeCodec.decode_dispatch`` ``iters`` times
+each under ``torch.profiler`` and prints, per path, every device activity
+(kernels and copies) with its time per iteration, then the device idle
+share: 1 - (time covered by device activity) / (first start to last end).
+Decode is given host depths, as the reader gives them (the uniform check
+runs on the host; the general path copies them to the device), with mins
+and payload already on the device.  The profiler
+adds host work between launches, so the idle share here is an upper
+bound on the unprofiled path's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from dbde_tpu.bench_core import make_content
+
+from .codec import DbdeCodec
+
+
+def device_intervals(prof) -> list[tuple[str, float, float]]:
+    """(name, start µs, end µs) of every device activity the profiler saw."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def idle_share(intervals) -> tuple[float, float, float]:
+    """→ (busy µs, span µs, idle share) of the union of the intervals."""
+    spans = sorted((s, e) for _, s, e in intervals)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    return busy, span, 1.0 - busy / span
+
+
+def profile_path(label: str, fn, iters: int) -> dict:
+    """Profile ``iters`` calls of ``fn`` (after a warm-up) and print the table."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    intervals = device_intervals(prof)
+    if not intervals:
+        raise RuntimeError(f"{label}: the profiler saw no device activity")
+    per_name = defaultdict(float)
+    for name, s, e in intervals:
+        per_name[name] += e - s
+    busy, span, idle = idle_share(intervals)
+    print(f"== {label}, {iters} iterations: device time per iteration")
+    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / iters:10.3f} us  {us / busy:6.1%}  {name[:100]}")
+    print(f"  device busy {busy:.1f} us over span {span:.1f} us -> idle share {idle:.3f}",
+          flush=True)
+    return {"per_iter_us": {k: v / iters for k, v in per_name.items()}, "idle_share": idle}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--size", type=int, default=2048, help="frame height and width")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_paths needs a CUDA GPU and none is visible")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"{smi.stdout.strip()}; torch {torch.__version__}; CUDA {torch.version.cuda}")
+    n = args.size
+    codec = DbdeCodec(n, n, device="cuda")
+    for content in ("camera", "random"):
+        frames = make_content(n, n, args.batch, kind=content)
+        x = torch.from_numpy(frames).to(codec.device)
+        enc = codec.encode(x)
+        depths = enc.depths.cpu().numpy()
+        if not np.array_equal(codec.decode(depths, enc.mins, enc.payload), frames):
+            raise AssertionError(f"{content}: decode did not return the frames")
+        shape = f"{args.batch}x{n}x{n} {content}"
+        profile_path(f"encode path, {shape}", lambda: codec.encode(x), args.iters)
+        profile_path(f"decode path, {shape}",
+                     lambda: codec.decode_dispatch(depths, enc.mins, enc.payload), args.iters)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

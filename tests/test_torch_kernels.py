@@ -1,0 +1,160 @@
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+small sizes.  Tolerance 0: the codec is integer-valued.
+
+Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the GPU machine, run
+this file without the suite's conftest (it pins jax to a CPU mesh for the
+JAX tests, which this file does not need):
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dbde_tpu.bench_core import make_adversarial, make_content
+from dbde_tpu.golden_vectors import GOLDEN_8x16_IMAGE, README_10x10_IMAGE
+from dbde_tpu_torch import read_video, write_video
+from dbde_tpu_torch.ops import band, word_offsets
+
+pytestmark = pytest.mark.requires_cuda
+
+SENTINEL = 0xDEADBEEF
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs on the GPU machine)")
+    return torch.device("cuda", 0)
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+GEOMETRIES = {
+    "golden": lambda: GOLDEN_8x16_IMAGE[None],
+    "readme": lambda: README_10x10_IMAGE[None],
+    "one pixel": lambda: np.full((2, 1, 1), 9, np.uint8),
+    "adversarial ragged": lambda: make_adversarial(43, 21, 2, maxd=8, seed=1),
+    "adversarial maxd 5": lambda: make_adversarial(64, 40, 3, maxd=5, seed=2),
+    "camera": lambda: make_content(256, 64, 2),
+    "random ragged": lambda: make_content(317, 45, 2, kind="random"),
+}
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_kernels_match_plain(cuda, name):
+    frames = GEOMETRIES[name]()
+    B, H, W = frames.shape
+    x = torch.from_numpy(np.ascontiguousarray(frames)).to(cuda)
+    d, m = band.encode_depths(x)
+    dp, mp = band.encode_depths_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dp) and torch.equal(m, mp)
+
+    offsets, total = word_offsets(d)
+    n64 = (total // 2).cpu().numpy()
+    fill = np.full((B, 16 * d.shape[1]), SENTINEL, np.uint32)
+    pk = band.encode_payload(x, d, m, offsets, out=torch.from_numpy(fill.copy()).to(cuda))
+    pp = band.encode_payload_plain(x, d, m, offsets, out=torch.from_numpy(fill).to(cuda))
+    torch.cuda.synchronize()
+    got, want = _u32(pk), _u32(pp)
+    np.testing.assert_array_equal(got, want)
+    for b in range(B):
+        assert (got[b, 2 * n64[b]:] == SENTINEL).all()
+
+    out = band.decode_frames(d, m, offsets, pk, H, W)
+    torch.cuda.synchronize()
+    assert torch.equal(out, band.decode_frames_plain(d, m, offsets, pk, H, W))
+    np.testing.assert_array_equal(out.cpu().numpy(), frames)
+
+    # shortest legal stride, random garbage after each frame's stream
+    S = max(2 * int(n64.max()), 1)
+    short = np.random.default_rng(0).integers(0, 1 << 32, (B, S), dtype=np.uint32)
+    for b in range(B):
+        short[b, : 2 * n64[b]] = got[b, : 2 * n64[b]]
+    sp = torch.from_numpy(short).to(cuda)
+    out = band.decode_frames(d, m, offsets, sp, H, W)
+    torch.cuda.synchronize()
+    assert torch.equal(out, band.decode_frames_plain(d, m, offsets, sp, H, W))
+    np.testing.assert_array_equal(out.cpu().numpy(), frames)
+
+    # the uniform pair, at any content: 16-byte path (default buffer) and
+    # word path (stride 16*T+3, sentinels after each frame's words)
+    full = 16 * d.shape[1]
+    p4 = band.encode_payload_u8(x, m)
+    fill = np.full((B, full + 3), SENTINEL, np.uint32)
+    p4s = band.encode_payload_u8(x, m, out=torch.from_numpy(fill.copy()).to(cuda))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_u32(p4), _u32(band.encode_payload_u8_plain(x, m)))
+    got4 = _u32(p4s)
+    np.testing.assert_array_equal(
+        got4, _u32(band.encode_payload_u8_plain(x, m, out=torch.from_numpy(fill).to(cuda))))
+    assert (got4[:, full:] == SENTINEL).all()
+    if bool((d == 8).all()):
+        np.testing.assert_array_equal(_u32(p4), got)
+    for src in (p4, p4s):
+        out = band.decode_frames_u8(m, src, H, W)
+        torch.cuda.synchronize()
+        assert torch.equal(out, band.decode_frames_u8_plain(m, src, H, W))
+        np.testing.assert_array_equal(out.cpu().numpy(), frames)
+
+
+def test_unaligned_frames_take_the_byte_path(cuda):
+    """W % 8 == 0 but a base address off the 8-byte grid: no u64 row loads."""
+    frames = make_content(64, 16, 2)
+    buf = torch.empty(1 + frames.size, dtype=torch.uint8, device=cuda)
+    x = buf[1:].view(frames.shape)
+    x.copy_(torch.from_numpy(frames))
+    d, m = band.encode_depths(x)
+    offsets, _ = word_offsets(d)
+    p = band.encode_payload(x, d, m, offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(d, band.encode_depths_plain(x)[0])
+    assert torch.equal(band.decode_frames(d, m, offsets, p, 16, 64).cpu(), x.cpu())
+
+
+def test_main_path_launches_every_kernel(cuda, tmp_path):
+    """Batches [camera, camera], [camera, random], [random, random]: the
+    first two through K2/K3, the all-depth-8 one through K4/K5."""
+    frames = np.concatenate([make_content(72, 40, 3), make_content(72, 40, 3, kind="random")])
+    band.reset_launches()
+    write_video(str(tmp_path / "v.dbde"), frames, device=cuda, batch_size=2)
+    _, _, out = read_video(str(tmp_path / "v.dbde"), device=cuda, batch_size=2)
+    np.testing.assert_array_equal(out, frames)
+    assert band.LAUNCHES == {"encode_depths": 3, "encode_payload": 2, "decode": 2,
+                             "encode_payload_u8": 1, "decode_u8": 1}
+
+
+def test_launch_leaves_the_current_device(cuda):
+    """A launch on the last card selects it only for the launch."""
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    before = torch.cuda.current_device()
+    x = torch.from_numpy(make_content(64, 16, 1, kind="random")).to(last)
+    d, m = band.encode_depths(x)
+    p = band.encode_payload_u8(x, m)
+    assert torch.equal(band.decode_frames_u8(m, p, 16, 64), x)
+    assert torch.cuda.current_device() == before
+
+
+def test_profile_paths_sees_the_kernels(cuda, capsys):
+    from dbde_tpu_torch import profile_paths
+
+    assert profile_paths.main(["--iters", "2", "--batch", "2", "--size", "64"]) == 0
+    text = capsys.readouterr().out
+    for kernel in ("encode_depths_kernel", "encode_payload_kernel", "decode_kernel",
+                   "encode_payload_u8_kernel", "decode_u8_kernel"):
+        assert kernel in text
+    assert text.count("idle share") == 4
+
+
+def test_wrappers_reject_bad_tensors(cuda):
+    x = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        band.encode_depths(x)
+    d = torch.zeros((1, 1), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        band.decode_frames(d, d, torch.zeros((1, 1), dtype=torch.int64, device=cuda),
+                           torch.zeros((1, 16), dtype=torch.uint32, device=cuda), 8, 8)

@@ -1,0 +1,213 @@
+"""The port's streaming writer/reader (device="cpu") against the JAX
+package's and the numpy oracle's files, the no-jax import rule, and a
+rehearsal of chip_smoke.py at a tiny size on the CPU."""
+
+import importlib.util
+import io
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dbde_tpu import ref_numpy as ref
+from dbde_tpu import stream as jax_stream
+from dbde_tpu.bench_core import make_adversarial, make_content
+from dbde_tpu.golden_vectors import GOLDEN_8x16_FILE, GOLDEN_8x16_IMAGE, README_10x10_IMAGE
+from dbde_tpu_torch import DbdeReader, DbdeWriter, read_video, write_video
+from dbde_tpu_torch.codec import unpack_frames_bytes
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N, H, W = 5, 20, 28  # batch 2 leaves a ragged tail batch of 1
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return make_adversarial(W, H, N, maxd=8, seed=12)
+
+
+@pytest.fixture(scope="module")
+def jax_file(frames, tmp_path_factory):
+    """A file written by the JAX package's writer on its XLA codec."""
+    path = tmp_path_factory.mktemp("jax") / "jax.dbde"
+    jax_stream.write_video(str(path), frames, frame_hz=250.0, device=True)
+    return path.read_bytes()
+
+
+def _write_port(frames, target: str, batch: int = 2) -> bytes:
+    """Port writer output through each of the base class's sinks: a file
+    descriptor (vectored writes), a BytesIO with the native assembler, a
+    BytesIO with the numpy record packer."""
+    f = io.BytesIO()
+    with DbdeWriter(f, H, W, frame_hz=250.0, device="cpu",
+                    use_native=(target != "bytesio-numpy")) as wr:
+        for i in range(0, len(frames), batch):
+            wr.write(frames[i : i + batch])
+    return f.getvalue()
+
+
+@pytest.mark.parametrize("target", ["file", "bytesio-native", "bytesio-numpy"])
+def test_write_video_bytes_match_jax_and_oracle(frames, jax_file, target, tmp_path):
+    if target == "file":
+        path = tmp_path / "port.dbde"
+        write_video(str(path), frames, frame_hz=250.0, device="cpu", batch_size=2)
+        got = path.read_bytes()
+    else:
+        got = _write_port(frames, target)
+    assert got == jax_file
+    assert got == ref.encode_video(list(frames), frame_hz=250.0)
+
+
+def test_uniform_depth8_video_bytes(tmp_path):
+    """Random frames (every tile depth 8, the uniform pair's case) in a
+    ragged geometry: the port's file is the oracle's, and both packages
+    read it back."""
+    frames = make_content(37, 19, 3, kind="random")
+    path = tmp_path / "random.dbde"
+    write_video(str(path), frames, frame_hz=250.0, device="cpu", batch_size=2)
+    assert path.read_bytes() == ref.encode_video(list(frames), frame_hz=250.0)
+    np.testing.assert_array_equal(read_video(str(path), device="cpu", batch_size=2)[2], frames)
+    np.testing.assert_array_equal(jax_stream.read_video(str(path), device=False)[2], frames)
+
+
+def test_writer_golden_file():
+    f = io.BytesIO()
+    with DbdeWriter(f, 8, 16, frame_hz=1.0, device="cpu") as wr:
+        wr.write(GOLDEN_8x16_IMAGE, indices=[1])
+    assert f.getvalue() == GOLDEN_8x16_FILE
+
+
+@pytest.mark.parametrize("source, use_native", [("file", True), ("file", False),
+                                                ("bytesio", True), ("bytesio", False)])
+def test_read_video_reads_jax_file(frames, jax_file, tmp_path, source, use_native):
+    """mmap'd file or buffered stream, native or numpy parse: every path of
+    the port's _read_batch_arrays."""
+    if source == "file":
+        path = tmp_path / "jax.dbde"
+        path.write_bytes(jax_file)
+        src = str(path)
+    else:
+        src = io.BytesIO(jax_file)
+    with DbdeReader(src, batch_size=2, device="cpu", use_native=use_native) as r:
+        headers, out = r.read_all()
+        assert r.header.frame_hz == 250.0 and r.frames_read == N
+    np.testing.assert_array_equal(out, frames)
+    assert [h.index for h in headers] == list(range(N))
+
+
+def test_read_video_function(frames, jax_file, tmp_path):
+    path = tmp_path / "jax.dbde"
+    path.write_bytes(jax_file)
+    vh, headers, out = read_video(str(path), device="cpu", batch_size=3)
+    assert (vh.height, vh.width) == (H, W) and len(headers) == N
+    np.testing.assert_array_equal(out, frames)
+
+
+def test_iter_raw_fields(frames, jax_file):
+    """The undecoded walk: the fields at the reader's short payload stride."""
+    with DbdeReader(io.BytesIO(jax_file), batch_size=N, device="cpu") as r:
+        (headers, (depths, mins, payload, n64)), = list(r.iter_raw())
+    assert payload.shape[1] == min(16 * depths.shape[1], 65536)
+    for b in range(N):
+        rec = ref.pack_frame(b, frames[b])[20:]
+        assert bytes(depths[b]) == rec[4 : 4 + depths.shape[1]]
+        assert payload[b, : 2 * n64[b]].tobytes() == rec[12 + 2 * depths.shape[1]:]
+
+
+def test_jax_reader_reads_port_file(frames, tmp_path):
+    path = tmp_path / "port.dbde"
+    write_video(str(path), frames, device="cpu", batch_size=4)
+    _, _, out = jax_stream.read_video(str(path), device=False)
+    np.testing.assert_array_equal(out, frames)
+
+
+def test_reader_rejects_cuda_without_gpu(jax_file):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible; this checks the error without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DbdeReader(io.BytesIO(jax_file))
+
+
+def test_unpack_frames_bytes_default_stride(frames, jax_file):
+    T = 3 * 4
+    off = 28 + 20
+    depths, mins, payload, n64 = unpack_frames_bytes(jax_file, W, H, [off])
+    assert payload.shape == (1, 16 * T)
+    np.testing.assert_array_equal(depths[0], ref.tile_depths_mins(ref.tile_image(frames[0]))[0])
+
+
+NO_JAX = """
+import os, sys, tempfile
+import numpy as np
+import dbde_tpu_torch
+from dbde_tpu_torch import read_video, write_video
+frames = np.random.default_rng(0).integers(0, 256, (3, 12, 20)).astype(np.uint8)
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "v.dbde")
+    write_video(path, frames, device="cpu", batch_size=2)
+    _, _, out = read_video(path, device="cpu", batch_size=2)
+assert (out == frames).all()
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+assert not leaked, leaked
+print("no-jax ok")
+"""
+
+
+def test_port_imports_no_jax():
+    """In a fresh interpreter (this one has jax from conftest), a full write
+    and read through the port leaves jax out of sys.modules."""
+    proc = subprocess.run([sys.executable, "-c", NO_JAX], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "no-jax ok" in proc.stdout
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_rehearsal_on_cpu():
+    """Phases 2 and 3 of chip_smoke.py at a tiny size, plain versions only."""
+    smoke = _chip_smoke()
+    cpu = torch.device("cpu")
+    errs = smoke.check_kernels(cpu, [
+        ("golden", GOLDEN_8x16_IMAGE[None]),
+        ("readme", README_10x10_IMAGE[None]),
+        ("adversarial", make_adversarial(43, 21, 2, maxd=8, seed=1)),
+        ("camera", make_content(40, 24, 2)),
+    ])
+    assert errs == dict.fromkeys(("encode_depths", "encode_payload", "decode",
+                                  "encode_payload_u8", "decode_u8"), 0)
+    frames = np.concatenate([make_content(40, 24, 3), make_content(40, 24, 2, kind="random")])
+    launches, _ = smoke.check_main_path(cpu, frames, batch=2)
+    assert set(launches.values()) == {0}
+    # what phase 3 requires on the GPU: the mixed batch [camera, random]
+    # takes the general pair, the all-random batch the uniform pair
+    assert smoke.expected_launches(frames, batch=2) == {
+        "encode_depths": 3, "encode_payload": 2, "decode": 2,
+        "encode_payload_u8": 1, "decode_u8": 1}
+
+
+def test_chip_smoke_main_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible; this checks the error without one")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _chip_smoke().main()
+
+
+def test_chip_smoke_timing_cases_on_cpu(monkeypatch):
+    """Phase 4's cases run (each once, untimed) on the plain versions: the
+    uniform pair is timed only on all-depth-8 content."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "_time_ms", lambda fn, iters: (fn(), 1.0)[1])
+    cpu = torch.device("cpu")
+    common = {"encode_depths", "encode_payload", "decode", "encode path",
+              "encode path general", "decode path"}
+    assert set(smoke.time_paths(cpu, make_content(24, 16, 2))) == common
+    assert set(smoke.time_paths(cpu, make_content(24, 16, 2, kind="random"))) == \
+        common | {"encode_payload_u8", "decode_u8"}
