@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's codec paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs CUDA and nvcc
 
 Phases, one line each, in order:
   0  device: the card's name and power limit (nvidia-smi), torch and CUDA
-  1  build: the CUDA kernels, compiled with nvcc from dbde_tpu_torch/csrc,
-     and the stream layer's native IO library (g++)
-  2  each kernel (K1 encode_depths, K2 encode_payload, K3 decode, and the
-     uniform depth-8 pair K4 encode_payload_u8, K5 decode_u8) against its
-     plain PyTorch version on the same CUDA tensors, exact equality, at the
-     flagship and ragged geometries; K2 and K4 must leave every word past
-     their own untouched, K3 and K5 must decode from payloads with garbage
-     after each frame's stream, and where every tile is depth 8 K4's
-     payload must equal K2's
+  1  build: the CUDA kernels, compiled with nvcc from dbde_tpu_torch/csrc
+     (one nvcc a source, in parallel), and the stream layer's native IO
+     library (g++)
+  2  each kernel against its plain PyTorch version on the same CUDA
+     tensors, exact equality, at the flagship, narrow, ragged and
+     block-seam geometries: K1 encode_depths, K2 encode_payload, K3
+     decode, the uniform depth-8 pair K4 encode_payload_u8 and K5
+     decode_u8, and the tiles backend's K6 encode_tiles and K7
+     decode_tiles.  K2, K4 and K6 must leave every word past their own
+     untouched; K3, K5 and K7 must decode from payloads with garbage after
+     each frame's stream; where every tile is depth 8 K4's payload must
+     equal K2's; K6's depths, minima, n64 and stream must equal K1's and
+     K2's
   3  the main path: write_video then read_video of 64 2048² camera frames
      and 16 2048² random frames (every tile depth 8) in batches of 16,
      bit-exact, first records byte-equal to the numpy oracle, each camera
      batch through K1/K2/K3 and the random batch through K1/K4/K5
-  4  timing with CUDA events: each kernel and the encode/decode paths
-     against their plain versions at 16×2048² camera and random content
+  3b the tiles backend: DbdeCodec(backend="tiles") encode → record bytes →
+     parse → decode of 16 2048² camera and 16 random frames, bit-exact,
+     records equal to the band backend's and the first to the numpy
+     oracle's, one K6 and one K7 a batch
+  4  timing with CUDA events: each kernel and the encode/decode paths of
+     both backends against their plain versions at 16×2048² camera and
+     random content, each kernel beside its bound; then the band and tiles
+     paths side by side at 8×2048×W camera, W ∈ {320, 256, 192, 128}
 
 Any failure raises, so the script exits non-zero without the final line.
 The line before the last lists the kernels as JSON; the last line is
@@ -38,28 +48,48 @@ import time
 import numpy as np
 import torch
 
-from dbde_tpu import ref_numpy
-from dbde_tpu.bench_core import make_adversarial, make_content
-from dbde_tpu.format import VIDEO_HEADER_BYTES
-from dbde_tpu.golden_vectors import GOLDEN_8x16_IMAGE, README_10x10_IMAGE
-from dbde_tpu.native import binding as native_binding
-from dbde_tpu_torch import read_video, write_video
-from dbde_tpu_torch.codec import DbdeCodec, EncodedBatch, all_depth8, pack_frames_bytes
-from dbde_tpu_torch.ops import band
+from dbde_tpu_torch import read_video, ref_numpy, write_video
+from dbde_tpu_torch.bench_core import make_adversarial, make_content, make_depth_runs
+from dbde_tpu_torch.codec import (
+    DbdeCodec,
+    EncodedBatch,
+    all_depth8,
+    pack_frames_bytes,
+    unpack_frames_bytes,
+)
+from dbde_tpu_torch.format import VIDEO_HEADER_BYTES, tile_grid
+from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_IMAGE, README_10x10_IMAGE
+from dbde_tpu_torch.native import binding as native_binding
+from dbde_tpu_torch.ops import band, tile_layout
 from dbde_tpu_torch.ops.build import build
 from dbde_tpu_torch.ops.payload import word_offsets
 
-SOURCE = "dbde_tpu_torch/csrc/dbde_kernels.cu"
-# (kernel, LAUNCHES key, the TPU kernel it replaces, phase-4 content)
+BAND_SOURCE = "dbde_tpu_torch/csrc/dbde_kernels.cu"
+TILES_SOURCE = "dbde_tpu_torch/csrc/dbde_tiles.cu"
+# (kernel, LAUNCHES key, source, the TPU kernel it replaces, phase-4 content)
 KERNELS = (
-    ("dbde_encode_depths", "encode_depths", "dbde_tpu/ops/pallas_band.py:370", "camera"),
-    ("dbde_encode_payload", "encode_payload", "dbde_tpu/ops/pallas_band.py:419", "camera"),
-    ("dbde_decode", "decode", "dbde_tpu/ops/pallas_band.py:1308", "camera"),
-    ("dbde_encode_payload_u8", "encode_payload_u8", "dbde_tpu/ops/pallas_band.py:1017", "random"),
-    ("dbde_decode_u8", "decode_u8", "dbde_tpu/ops/pallas_band.py:1182", "random"),
+    ("dbde_encode_depths", "encode_depths", BAND_SOURCE, "dbde_tpu/ops/pallas_band.py:370", "camera"),
+    ("dbde_encode_payload", "encode_payload", BAND_SOURCE, "dbde_tpu/ops/pallas_band.py:419", "camera"),
+    ("dbde_decode", "decode", BAND_SOURCE, "dbde_tpu/ops/pallas_band.py:1308", "camera"),
+    ("dbde_encode_payload_u8", "encode_payload_u8", BAND_SOURCE,
+     "dbde_tpu/ops/pallas_band.py:1017", "random"),
+    ("dbde_decode_u8", "decode_u8", BAND_SOURCE, "dbde_tpu/ops/pallas_band.py:1182", "random"),
+    ("dbde_encode_tiles", "encode_tiles", TILES_SOURCE, "dbde_tpu/ops/pallas_kernels.py:79", "camera"),
+    ("dbde_decode_tiles", "decode_tiles", TILES_SOURCE, "dbde_tpu/ops/pallas_kernels.py:189", "camera"),
 )
 SENTINEL = 0xDEADBEEF
 TOLERANCE = 0  # the codec is integer-valued: kernels and plain versions agree exactly
+
+# The card's peaks for the bound (NVIDIA H100 SXM data sheet): HBM3 at
+# 3.35 TB/s; 32-bit integer operations at half the 67 TFLOP/s of fp32 outside
+# the tensor cores, since a Hopper SM issues 64 INT32 lanes a clock to 128
+# FP32.  The kernels' arithmetic is integer shifts, masks, adds and min/max.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 33.5e12
+# least integer operations a tile: depth and minimum (extract, min, max of
+# 64 pixels), bit-pack and unpack (shift, or, mask of 64 residuals), the
+# uniform pair's bytewise subtract/add of 16 words
+OPS_DEPTH_MIN, OPS_PACK, OPS_UNPACK, OPS_BYTEWISE = 256, 192, 256, 96
 
 
 def _sync(device: torch.device) -> None:
@@ -82,6 +112,10 @@ def _require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _sentinels(B: int, S: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.full((B, S), SENTINEL, np.uint32)).to(device)
+
+
 def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, int]:
     """Phase 2: every kernel against its plain version on ``device``.
 
@@ -102,9 +136,8 @@ def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, 
         offsets, total = word_offsets(d)
         n64 = (total // 2).cpu().numpy()
         T = d.shape[1]
-        fill = np.full((B, 16 * T), SENTINEL, np.uint32)
-        pk = band.encode_payload(x, d, m, offsets, out=torch.from_numpy(fill.copy()).to(device))
-        pp = band.encode_payload_plain(x, d, m, offsets, out=torch.from_numpy(fill).to(device))
+        pk = band.encode_payload(x, d, m, offsets, out=_sentinels(B, 16 * T, device))
+        pp = band.encode_payload_plain(x, d, m, offsets, out=_sentinels(B, 16 * T, device))
         _sync(device)
         e2 = _max_err(pk, pp)
         pk_host = pk.cpu().numpy()
@@ -140,9 +173,8 @@ def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, 
         full = 16 * T
         pk4 = band.encode_payload_u8(x, m)
         pp4 = band.encode_payload_u8_plain(x, m)
-        fill = np.full((B, full + 3), SENTINEL, np.uint32)
-        pk4s = band.encode_payload_u8(x, m, out=torch.from_numpy(fill.copy()).to(device))
-        pp4s = band.encode_payload_u8_plain(x, m, out=torch.from_numpy(fill).to(device))
+        pk4s = band.encode_payload_u8(x, m, out=_sentinels(B, full + 3, device))
+        pp4s = band.encode_payload_u8_plain(x, m, out=_sentinels(B, full + 3, device))
         _sync(device)
         e4 = max(_max_err(pk4, pp4), _max_err(pk4s, pp4s))
         _require(torch.equal(pk4s[:, :full], pk4), f"{label}: encode_payload_u8 paths differ")
@@ -160,10 +192,37 @@ def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, 
             e5 = max(e5, _max_err(out_k, out_p))
             _require(torch.equal(out_k, x), f"{label}: decode_u8 did not return the frames")
 
-        for name, e in zip(errs, (e1, e2, e3, e4, e5)):
+        # the tiles backend: K6 from tiles_W into the same sentinel-filled
+        # buffer as K2 must give K2's words exactly (stream and sentinels),
+        # with K1's depths and minima and zero pad tiles; K7 must decode it
+        # and the garbage-padded short-stride payload
+        tw = tile_layout.image_to_tiles_w(x)
+        tp = tw.shape[2]
+        k6 = tile_layout.encode_tiles(tw, T, out=_sentinels(B, 16 * T, device))
+        p6 = tile_layout.encode_tiles_plain(tw, T, out=_sentinels(B, 16 * T, device))
+        _sync(device)
+        e6 = max(_max_err(a, b) for a, b in zip(k6, p6))
+        d6, m6, pay6, n6 = k6
+        _require(torch.equal(pay6.view(torch.int32), pk.view(torch.int32)),
+                 f"{label}: encode_tiles' payload buffer is not encode_payload's")
+        _require(torch.equal(d6[:, :T], d) and torch.equal(m6[:, :T], m)
+                 and not d6[:, T:].any() and not m6[:, T:].any()
+                 and n6.cpu().numpy().tolist() == n64.tolist(),
+                 f"{label}: encode_tiles' depths, minima or n64 are not encode_depths'")
+        e7 = 0
+        for src in (pay6, sp):
+            tk = tile_layout.decode_tiles(d6, m6, src)
+            tpl = tile_layout.decode_tiles_plain(d6, m6, src)
+            _sync(device)
+            e7 = max(e7, _max_err(tk, tpl))
+            _require(torch.equal(tile_layout.tiles_w_to_image(tk, H, W), x),
+                     f"{label}: decode_tiles did not return the frames")
+
+        for name, e in zip(errs, (e1, e2, e3, e4, e5, e6, e7)):
             errs[name] = max(errs[name], e)
-        print(f"phase 2 {label}: max |kernel - plain| K1 {e1} K2 {e2} K3 {e3} K4 {e4} K5 {e5}; "
-              f"n64 max {int(n64.max())}, stride {S}, all depth 8: {uniform}", flush=True)
+        print(f"phase 2 {label}: max |kernel - plain| K1 {e1} K2 {e2} K3 {e3} K4 {e4} K5 {e5} "
+              f"K6 {e6} K7 {e7}; T {T}, Tp {tp}, n64 max {int(n64.max())}, stride {S}, "
+              f"all depth 8: {uniform}", flush=True)
     _require(max(errs.values()) <= TOLERANCE, f"kernels disagree with plain: {errs}")
     return errs
 
@@ -211,6 +270,41 @@ def check_main_path(device: torch.device, frames: np.ndarray, batch: int):
     return launches, seconds
 
 
+def check_tiles_path(device: torch.device, batches) -> tuple[dict, float]:
+    """Phase 3b: each (B, H, W) batch through ``DbdeCodec(backend="tiles")``:
+    encode → record bytes → parse at the reader's stride → decode.
+    Returns (launches during the run, host seconds of the run)."""
+    n = len(batches)
+    expected = dict.fromkeys(band.LAUNCHES, 0)
+    if device.type == "cuda":
+        expected.update(encode_tiles=n, decode_tiles=n)
+    records = []
+    band.reset_launches()
+    t0 = time.perf_counter()
+    for frames in batches:
+        B, H, W = frames.shape
+        codec = DbdeCodec(H, W, device=device, backend="tiles")
+        recs = pack_frames_bytes(codec.encode(frames))
+        buf = b"".join(r[20:] for r in recs)
+        offsets = np.cumsum([0] + [len(r) - 20 for r in recs[:-1]]).tolist()
+        max_n64 = max((len(r) - 32 - 2 * codec.tiles) // 8 for r in recs)
+        stride = min(16 * codec.tiles, -(-2 * max_n64 // 65536) * 65536 or 2)
+        depths, mins, payload, _ = unpack_frames_bytes(buf, W, H, offsets, stride)
+        out = codec.decode(depths, mins, payload)
+        _require(np.array_equal(out, frames), "the tiles backend did not return the frames")
+        records.append(recs)
+    seconds = time.perf_counter() - t0
+    launches = dict(band.LAUNCHES)
+    _require(launches == expected, f"tiles launches {launches}, expected {expected}")
+    for frames, recs in zip(batches, records):
+        B, H, W = frames.shape
+        _require(recs == pack_frames_bytes(DbdeCodec(H, W, device=device).encode(frames)),
+                 "the tiles backend's records differ from the band backend's")
+        _require(recs[0][20:] == ref_numpy.pack_image(frames[0]),
+                 "the tiles backend's first record differs from the numpy oracle's")
+    return launches, seconds
+
+
 def _time_ms(fn, iters: int) -> float:
     for _ in range(3):
         fn()
@@ -224,24 +318,40 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _in_turns(cases: dict, iters: int) -> dict:
+    """{name: (a, b)} → {name: (ms of a, ms of b)}, timed b, a, a, b."""
+    times = {}
+    for name, (a, b) in cases.items():
+        b1, a1, a2, b2 = (_time_ms(f, iters) for f in (b, a, a, b))
+        times[name] = ((a1 + a2) / 2, (b1 + b2) / 2)
+    return times
+
+
 def time_paths(device: torch.device, frames: np.ndarray, iters: int = 20) -> dict:
     """Phase 4: ms per call of kernel and plain version, measured in turns
     (plain, kernel, kernel, plain) and averaged per version.
 
-    The encode path is ``DbdeCodec.encode`` (K1, the depth-8 check, then
-    scan + K2 or K4) against the same steps in plain versions; "encode
-    path general" is K1 + scan + K2 with no check, which prices the check
-    and, on all-depth-8 content, what K4 saves.  The decode
-    path is scan + K3, or K5 when every tile is depth 8; that choice is made
-    once on the host, as the reader makes it from host depths."""
+    The band encode path is ``DbdeCodec.encode`` (K1, the depth-8 check,
+    then scan + K2 or K4) against the same steps in plain versions;
+    "encode path general" is K1 + scan + K2 with no check, which prices the
+    check and, on all-depth-8 content, what K4 saves.  The band decode path
+    is scan + K3, or K5 when every tile is depth 8; that choice is made
+    once on the host, as the reader makes it from host depths.  The tiles
+    paths are ``DbdeCodec(backend="tiles")``'s encode (layout transform,
+    K6) and decode (padding, K7, layout transform)."""
     B, H, W = frames.shape
     x = torch.from_numpy(frames).to(device)
     codec = DbdeCodec(H, W, device=device)
+    tiles = DbdeCodec(H, W, device=device, backend="tiles")
     d, m = band.encode_depths(x)
     off, _ = word_offsets(d)
     p = band.encode_payload(x, d, m, off)
     buf = torch.empty_like(p)
     uniform = all_depth8(d)
+    T = d.shape[1]
+    tw = tile_layout.image_to_tiles_w(x)
+    d6, m6, p6, _ = tile_layout.encode_tiles(tw, T)
+    enc6 = tiles.encode(x)
 
     def encode_plain():
         dd, mm = band.encode_depths_plain(x)
@@ -261,6 +371,15 @@ def time_paths(device: torch.device, frames: np.ndarray, iters: int = 20) -> dic
         oo, _ = word_offsets(d)
         return general(d, m, oo, p, H, W)
 
+    def tiles_encode_plain():
+        return tile_layout.encode_tiles_plain(tile_layout.image_to_tiles_w(x), T)
+
+    def tiles_decode_plain():
+        tp = tw.shape[2]
+        out = tile_layout.decode_tiles_plain(tile_layout.pad_last(enc6.depths, tp),
+                                             tile_layout.pad_last(enc6.mins, tp), enc6.payload)
+        return tile_layout.tiles_w_to_image(out, H, W)
+
     cases = {
         "encode_depths": (lambda: band.encode_depths(x), lambda: band.encode_depths_plain(x)),
         "encode_payload": (lambda: band.encode_payload(x, d, m, off, out=buf),
@@ -276,18 +395,72 @@ def time_paths(device: torch.device, frames: np.ndarray, iters: int = 20) -> dic
                           lambda: band.decode_frames_u8_plain(m, p, H, W)),
         })
     cases.update({
+        "encode_tiles": (lambda: tile_layout.encode_tiles(tw, T, out=buf),
+                         lambda: tile_layout.encode_tiles_plain(tw, T, out=buf)),
+        "decode_tiles": (lambda: tile_layout.decode_tiles(d6, m6, p6),
+                         lambda: tile_layout.decode_tiles_plain(d6, m6, p6)),
         "encode path": (lambda: codec.encode(x), encode_plain),
         "encode path general": (lambda: encode_general(band.encode_depths, band.encode_payload),
                                 lambda: encode_general(band.encode_depths_plain,
                                                        band.encode_payload_plain)),
         "decode path": (lambda: decode(band.decode_frames, band.decode_frames_u8),
                         lambda: decode(band.decode_frames_plain, band.decode_frames_u8_plain)),
+        "tiles encode path": (lambda: tiles.encode(x), tiles_encode_plain),
+        "tiles decode path": (lambda: tiles.decode_dispatch(enc6.depths, enc6.mins, enc6.payload),
+                              tiles_decode_plain),
     })
-    times = {}
-    for name, (kernel, plain) in cases.items():
-        p1, k1, k2, p2 = (_time_ms(f, iters) for f in (plain, kernel, kernel, plain))
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-    return times
+    return _in_turns(cases, iters)
+
+
+def time_widths(device: torch.device, widths, H: int = 2048, B: int = 8,
+                iters: int = 20) -> dict:
+    """Phase 4, narrow widths: the band and tiles backends side by side on
+    B×H×W camera frames already on the card.  Returns {W: {path: (band ms,
+    tiles ms)}} for the encode and decode paths, timed tiles, band, band,
+    tiles."""
+    out = {}
+    for W in widths:
+        x = torch.from_numpy(make_content(W, H, B)).to(device)
+        bc = DbdeCodec(H, W, device=device)
+        tc = DbdeCodec(H, W, device=device, backend="tiles")
+        eb, et = bc.encode(x), tc.encode(x)
+        _require(pack_frames_bytes(eb) == pack_frames_bytes(et), f"W={W}: backends differ")
+        out[W] = _in_turns({
+            "encode": (lambda: bc.encode(x), lambda: tc.encode(x)),
+            "decode": (lambda: bc.decode_dispatch(eb.depths, eb.mins, eb.payload),
+                       lambda: tc.decode_dispatch(et.depths, et.mins, et.payload)),
+        }, iters)
+    return out
+
+
+def kernel_bound(key: str, frames: np.ndarray, n64_total: int) -> tuple[float, str, int, int]:
+    """The least time the card could take for one call of kernel ``key`` on
+    ``frames`` with ``n64_total`` payload u64 words over the batch:
+    (ms, "bytes" or "operations", bytes moved, integer operations).  Each
+    input is read once and each output written once; the payload counts
+    its live words only."""
+    B, H, W = frames.shape
+    h, w = tile_grid(W, H)
+    T = h * w
+    tp = tile_layout.pad_tiles(T)
+    pix, pay = B * H * W, 8 * n64_total
+    nbytes, ops = {
+        "encode_depths": (pix + 2 * B * T, OPS_DEPTH_MIN * B * T),
+        "encode_payload": (pix + 6 * B * T + pay, OPS_PACK * B * T),
+        "decode": (6 * B * T + pay + pix, OPS_UNPACK * B * T),
+        "encode_payload_u8": (pix + B * T + 64 * B * T, OPS_BYTEWISE * B * T),
+        "decode_u8": (B * T + 64 * B * T + pix, OPS_BYTEWISE * B * T),
+        "encode_tiles": (64 * B * tp + 2 * B * tp + pay + 4 * B,
+                         (OPS_DEPTH_MIN + OPS_PACK) * B * T),
+        "decode_tiles": (2 * B * tp + pay + 64 * B * tp, OPS_UNPACK * B * tp),
+    }[key]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def _n64_total(frames: np.ndarray, device: torch.device) -> int:
+    d, _ = band.encode_depths(torch.from_numpy(frames).to(device))
+    return int(d.to(torch.int64).sum())
 
 
 def main() -> int:
@@ -322,8 +495,12 @@ def main() -> int:
         ("camera 16x2048x2048", camera16),
         ("adversarial 4x2048x2048 maxd 8", make_adversarial(2048, 2048, 4, maxd=8, seed=1)),
         ("random 4x2048x2536", make_content(2536, 2048, 4, kind="random")),
+        ("camera 8x2048x320", make_content(320, 2048, 8)),
         ("camera 4x1081x1920", make_content(1920, 1081, 4)),
         ("camera 2x1081x1927", make_content(1927, 1081, 2)),
+        ("depth runs 3x16x40000 across block seams", make_depth_runs(40000, 16, 3, seed=2)),
+        ("adversarial 2x8x8200, T mod 1024 = 1", make_adversarial(8200, 8, 2, seed=3)),
+        ("adversarial 2x8x16376, T mod 1024 = 1023", make_adversarial(16376, 8, 2, seed=4)),
         ("golden 1x8x16", GOLDEN_8x16_IMAGE[None]),
         ("readme 1x10x10", README_10x10_IMAGE[None]),
     ]
@@ -339,21 +516,48 @@ def main() -> int:
           f"({n / t_write:.1f} frames/s), read_video {t_read:.4f} s ({n / t_read:.1f} frames/s) "
           f"(host clock, file IO included, batch 16); launches {launches}", flush=True)
 
-    times = {}
+    tiles_launches, t_tiles = check_tiles_path(device, [camera16, random16])
+    print(f"phase 3b tiles backend: 16 camera + 16 random 2048x2048 frames bit-exact, records "
+          f"equal to the band backend's and the numpy oracle's; {t_tiles:.4f} s (host clock, "
+          f"record bytes and parse included); launches {tiles_launches}", flush=True)
+    launches.update(encode_tiles=tiles_launches["encode_tiles"],
+                    decode_tiles=tiles_launches["decode_tiles"])
+
+    times, bounds = {}, {}
     for content, frames in (("camera", camera16), ("random", random16)):
         times[content] = time_paths(device, frames)
+        n64_total = _n64_total(frames, device)
         pix = frames.size
         for name, (k_ms, p_ms) in times[content].items():
+            bound = ""
+            if name in band.LAUNCHES:
+                b_ms, by, nbytes, ops = bounds[content, name] = kernel_bound(name, frames, n64_total)
+                bound = (f"; bound {b_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+                         f"{ops / 1e6:.0f} M int ops), {b_ms / k_ms:.1%} of it")
             print(f"phase 4 {name} 16x2048x2048 {content}: kernel {k_ms:.4f} ms "
                   f"({pix / k_ms / 1e6:.2f} Gpix/s), plain {p_ms:.4f} ms "
-                  f"({pix / p_ms / 1e6:.2f} Gpix/s) on {card}", flush=True)
+                  f"({pix / p_ms / 1e6:.2f} Gpix/s){bound} on {card}", flush=True)
+    for W, paths in time_widths(device, (320, 256, 192, 128)).items():
+        for path_name, (b_ms, t_ms) in paths.items():
+            pix = 8 * 2048 * W
+            print(f"phase 4 narrow 8x2048x{W} camera {path_name} path: band {b_ms:.4f} ms "
+                  f"({pix / b_ms / 1e6:.2f} Gpix/s), tiles {t_ms:.4f} ms "
+                  f"({pix / t_ms / 1e6:.2f} Gpix/s), tiles/band {t_ms / b_ms:.3f} on {card}",
+                  flush=True)
 
     _require("jax" not in sys.modules, "jax was imported")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-         "launches": launches[key], "max_abs_err": errs[key],
-         "ms": times[content][key][0], "plain_ms": times[content][key][1]}
-        for name, key, replaces, content in KERNELS]}))
+    _require(not any(m == "dbde_tpu" or m.startswith("dbde_tpu.") for m in sys.modules),
+             "the JAX package was imported")
+    rows = []
+    for name, key, source, replaces, content in KERNELS:
+        b_ms, by, _, _ = bounds[content, key]
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[key], "max_abs_err": errs[key],
+                     "ms": times[content][key][0], "plain_ms": times[content][key][1],
+                     "bound_ms": b_ms, "bound_by": by,
+                     # no single PyTorch call computes a DBDE tile pack or unpack
+                     "library_ms": None})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -4,12 +4,17 @@ A port of :mod:`dbde_tpu` (JAX/Pallas on a TPU) that writes and reads the
 same bytes.  Layers:
 
   * :mod:`dbde_tpu_torch.ops`    — tile ops in PyTorch and the CUDA kernels
-  * :mod:`dbde_tpu_torch.codec`  — public encode/decode API + host byte glue
+  * :mod:`dbde_tpu_torch.codec`  — public encode/decode API + host byte glue;
+    ``DbdeCodec(..., backend="band")`` (the default, kernels K1–K5) or
+    ``backend="tiles"`` (the tile-layout kernels K6/K7), same bytes
   * :mod:`dbde_tpu_torch.stream` — streaming file reader/writer
+  * :mod:`dbde_tpu_torch.format`, :mod:`~dbde_tpu_torch.ref_numpy`,
+    :mod:`~dbde_tpu_torch.golden_vectors`, :mod:`~dbde_tpu_torch.bench_core`,
+    :mod:`dbde_tpu_torch.native` — host modules: container serde, the
+    numpy oracle, the golden vectors, synthetic content, native record IO
 
-The port imports ``torch`` and never ``jax``.  It reuses the JAX package's
-JAX-free host modules (:mod:`dbde_tpu.format`, :mod:`dbde_tpu.native`, the
-classes of :mod:`dbde_tpu.stream`) rather than copying them.
+The port imports ``torch`` and never ``jax``, and nothing of ``dbde_tpu``:
+it keeps its own copy of each host module it needs.
 """
 
 __version__ = "0.1.0"

@@ -5,14 +5,22 @@ Counterpart of :mod:`dbde_tpu.codec` with the same contract:
   * :class:`DbdeCodec` — per-(H, W) encode/decode over frame batches;
   * :func:`pack_frames_bytes` / :func:`unpack_frames_bytes` /
     :func:`record_iovecs` — host glue between encoded arrays and the
-    on-disk frame-data layout (a numpy copy of ``dbde_tpu/codec.py``'s,
-    because that module imports jax).
+    on-disk frame-data layout (numpy; the port keeps its own copy, as it
+    does of every host module it needs).
 
-On a CUDA device the codec runs the kernels of :mod:`.ops.band`; on the
-CPU it runs their plain PyTorch versions.  A batch whose tiles are all
-depth 8 takes the uniform pair (K4 encode, K5 decode), chosen exactly from
-the batch's own depths; every other batch takes K2 and K3.  It keeps no
-state between calls, so one instance may serve several threads.
+On a CUDA device the codec runs the kernels; on the CPU it runs their
+plain PyTorch versions.  Two backends, as in the JAX package:
+
+  * ``"band"`` (the default) works on the frames as they are
+    (:mod:`.ops.band`, K1–K5).  A batch whose tiles are all depth 8 takes
+    the uniform pair (K4 encode, K5 decode), chosen exactly from the
+    batch's own depths; every other batch takes K2 and K3.
+  * ``"tiles"`` moves the frames into the word-major tile layout first
+    (:mod:`.ops.tile_layout`): one fused encode K6 and one decode K7 a
+    batch, with no depth-8 dispatch.
+
+The codec keeps no state between calls, so one instance may serve several
+threads.
 """
 
 from __future__ import annotations
@@ -23,11 +31,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dbde_tpu.format import FrameHeader, tile_grid
-
-from .ops import band
+from .format import FrameHeader, tile_grid
+from .ops import band, tile_layout
 from .ops.bitpack import MAX_WORDS_PER_TILE
 from .ops.payload import word_offsets
+
+BACKENDS = ("band", "tiles")
 
 
 def _host(a) -> np.ndarray:
@@ -91,10 +100,14 @@ class DbdeCodec:
     >>> enc = codec.encode(frames_u8)                       # (B, H, W) u8
     >>> out = codec.decode(enc.depths, enc.mins, enc.payload)
 
-    ``device="cpu"`` runs the plain PyTorch versions of the kernels.
+    ``device="cpu"`` runs the plain PyTorch versions of the kernels;
+    ``backend`` is ``"band"`` or ``"tiles"`` (see the module docstring).
     """
 
-    def __init__(self, height: int, width: int, device="cuda"):
+    def __init__(self, height: int, width: int, device="cuda", backend: str = "band"):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}: expected one of {BACKENDS}")
+        self.backend = backend
         self.height = int(height)
         self.width = int(width)
         self.device = torch.device(device)
@@ -135,6 +148,11 @@ class DbdeCodec:
         ``defer_verify`` is accepted for the JAX codec's contract and has no
         effect: the payload is always valid as returned."""
         x, _ = self._frames(images)
+        if self.backend == "tiles":
+            T = self.tiles
+            d, m, payload, n64 = tile_layout.encode_tiles(tile_layout.image_to_tiles_w(x), T)
+            return EncodedBatch(depths=d[:, :T].contiguous(), mins=m[:, :T].contiguous(),
+                                payload=payload, n64=n64)
         depths, mins = band.encode_depths(x)
         if all_depth8(depths):  # static layout: no scan, tile t at word 16*t
             payload = band.encode_payload_u8(x, mins)
@@ -156,6 +174,11 @@ class DbdeCodec:
         checked there for the uniform case, which waits for them."""
         m = self._put(mins, torch.uint8)
         p = self._put(payload, torch.uint32)
+        if self.backend == "tiles":
+            tp = tile_layout.pad_tiles(self.tiles)
+            d = tile_layout.pad_last(self._put(depths, torch.uint8), tp)
+            tw = tile_layout.decode_tiles(d, tile_layout.pad_last(m, tp), p)
+            return tile_layout.tiles_w_to_image(tw, self.height, self.width)
         if all_depth8(depths):
             return band.decode_frames_u8(m, p, self.height, self.width)
         d = self._put(depths, torch.uint8)

@@ -79,28 +79,6 @@ __device__ __forceinline__ void store_tile(uint8_t* __restrict__ img, int H, int
   }
 }
 
-template <int K>
-__device__ __forceinline__ void pack_store(const uint32_t tile[16], uint32_t mn,
-                                           uint32_t* __restrict__ dst) {
-  uint32_t w[16];
-  dbde_pack_k<K>(tile, mn, w);
-#pragma unroll
-  for (int j = 0; j < 2 * K; ++j) dst[j] = w[j];
-}
-
-// Reads the tile's 2K words and nothing else.  A word index at or past the
-// stride S reads word S-1 instead (the clamp of the plain gather_windows), so
-// a corrupt depth map cannot read outside the frame's row.
-template <int K>
-__device__ __forceinline__ void load_unpack(const uint32_t* __restrict__ src,
-                                            int off, int S, uint32_t mn,
-                                            uint32_t tile[16]) {
-  uint32_t w[16];
-#pragma unroll
-  for (int j = 0; j < 2 * K; ++j) w[j] = src[min(off + j, S - 1)];
-  dbde_unpack_k<K>(w, mn, tile);
-}
-
 // K1.  Replaces dbde_tpu/ops/pallas_band.py _depths_kernel (l.370, wrapper
 // encode_depths_kernel l.386).  Bound: one read of the frame (16 x 2048^2 u8
 // is 67 MB, about 20 us at 3.35 TB/s); the arithmetic is ~200 integer ops a
@@ -146,18 +124,7 @@ __global__ void __launch_bounds__(kThreads)
   if (k == 0u || k > 8u) return;
   uint32_t tile[16];
   load_tile(img + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
-  const uint32_t mn = mins[bt];
-  uint32_t* dst = payload + (size_t)b * S + offsets[bt];
-  switch (k) {
-    case 1: pack_store<1>(tile, mn, dst); break;
-    case 2: pack_store<2>(tile, mn, dst); break;
-    case 3: pack_store<3>(tile, mn, dst); break;
-    case 4: pack_store<4>(tile, mn, dst); break;
-    case 5: pack_store<5>(tile, mn, dst); break;
-    case 6: pack_store<6>(tile, mn, dst); break;
-    case 7: pack_store<7>(tile, mn, dst); break;
-    default: pack_store<8>(tile, mn, dst); break;
-  }
+  dbde_pack_store(tile, mins[bt], k, payload + (size_t)b * S + offsets[bt]);
 }
 
 // K3.  Replaces dbde_tpu/ops/pallas_band.py _decode_kernel (l.1308, wrappers
@@ -180,17 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   const int off = offsets[bt];
   const uint32_t* src = payload + (size_t)b * S;
   uint32_t tile[16];
-  switch (k) {
-    case 1: load_unpack<1>(src, off, S, mn, tile); break;
-    case 2: load_unpack<2>(src, off, S, mn, tile); break;
-    case 3: load_unpack<3>(src, off, S, mn, tile); break;
-    case 4: load_unpack<4>(src, off, S, mn, tile); break;
-    case 5: load_unpack<5>(src, off, S, mn, tile); break;
-    case 6: load_unpack<6>(src, off, S, mn, tile); break;
-    case 7: load_unpack<7>(src, off, S, mn, tile); break;
-    case 8: load_unpack<8>(src, off, S, mn, tile); break;
-    default: dbde_fill_tile(mn, tile); break;
-  }
+  dbde_load_unpack(src, (uint32_t)off, (uint32_t)S, mn, k, tile);
   store_tile(out + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
 }
 

@@ -1,8 +1,9 @@
-// Per-tile DBDE arithmetic shared by the CUDA kernels (dbde_kernels.cu) and a
-// CPU test library built from this header alone with g++
+// Per-tile DBDE arithmetic shared by the CUDA kernels (dbde_kernels.cu,
+// dbde_tiles.cu) and a CPU test library built from this header alone with g++
 // (tests/test_torch_tile_math.py).  Everything here is plain integer code on
-// one 8x8 tile held in registers; loading and storing a tile belongs to the
-// kernels.
+// one 8x8 tile held in registers, with the word stores and loads of a tile's
+// payload and of the tiles backend's layout; loading a tile from a frame
+// belongs to the kernels.
 //
 // A tile is 16 u32 words: word 2r+h holds pixels (r, 4h..4h+3), lowest byte
 // first -- the little-endian view of the tile's 8 rows of 8 bytes.  Pixel i
@@ -16,6 +17,7 @@
 // 1025, 1189).
 #pragma once
 
+#include <stddef.h>
 #include <stdint.h>
 
 #ifdef __CUDACC__
@@ -129,36 +131,96 @@ DBDE_HD void dbde_unpack8(const uint32_t w[16], uint32_t mn, uint32_t tile[16]) 
   for (int q = 0; q < 16; ++q) tile[q] = dbde_add_bytes(w[q], m4);
 }
 
-// Runtime-depth forms of the above, for the CPU test library.  The kernels
-// switch on the depth themselves so that every word index stays a
-// compile-time constant and the words stay in registers.
-DBDE_HD int dbde_pack(const uint32_t tile[16], uint32_t mn, uint32_t k,
-                      uint32_t w[16]) {
-  switch (k) {
-    case 1: dbde_pack_k<1>(tile, mn, w); break;
-    case 2: dbde_pack_k<2>(tile, mn, w); break;
-    case 3: dbde_pack_k<3>(tile, mn, w); break;
-    case 4: dbde_pack_k<4>(tile, mn, w); break;
-    case 5: dbde_pack_k<5>(tile, mn, w); break;
-    case 6: dbde_pack_k<6>(tile, mn, w); break;
-    case 7: dbde_pack_k<7>(tile, mn, w); break;
-    case 8: dbde_pack_k<8>(tile, mn, w); break;
-    default: return 0;
-  }
-  return 2 * (int)k;
+// Pack a depth-K tile and store its 2K words at dst[0..2K), nothing else.
+template <int K>
+DBDE_HD void dbde_pack_store_k(const uint32_t tile[16], uint32_t mn,
+                               uint32_t* dst) {
+  uint32_t w[16];
+  dbde_pack_k<K>(tile, mn, w);
+  DBDE_UNROLL
+  for (int j = 0; j < 2 * K; ++j) dst[j] = w[j];
 }
 
-DBDE_HD void dbde_unpack(const uint32_t w[16], uint32_t mn, uint32_t k,
-                         uint32_t tile[16]) {
+// Read a depth-K tile's 2K words at src[off..off+2K) and unpack them.  A word
+// index at or past the stride S reads word S-1 instead (the clamp of the
+// plain gather_windows), so a corrupt depth map cannot read outside the
+// frame's row.
+template <int K>
+DBDE_HD void dbde_load_unpack_k(const uint32_t* src, uint32_t off, uint32_t S,
+                                uint32_t mn, uint32_t tile[16]) {
+  uint32_t w[16];
+  DBDE_UNROLL
+  for (int j = 0; j < 2 * K; ++j) w[j] = src[off + j < S ? off + j : S - 1];
+  dbde_unpack_k<K>(w, mn, tile);
+}
+
+// Runtime-depth dispatch of the two above, one case per depth, so that every
+// word index stays a compile-time constant and the words stay in registers.
+// A depth of 0 stores nothing (and so does an illegal one); it decodes, as
+// does an illegal one, to the tile's minimum.
+DBDE_HD void dbde_pack_store(const uint32_t tile[16], uint32_t mn, uint32_t k,
+                             uint32_t* dst) {
   switch (k) {
-    case 1: dbde_unpack_k<1>(w, mn, tile); break;
-    case 2: dbde_unpack_k<2>(w, mn, tile); break;
-    case 3: dbde_unpack_k<3>(w, mn, tile); break;
-    case 4: dbde_unpack_k<4>(w, mn, tile); break;
-    case 5: dbde_unpack_k<5>(w, mn, tile); break;
-    case 6: dbde_unpack_k<6>(w, mn, tile); break;
-    case 7: dbde_unpack_k<7>(w, mn, tile); break;
-    case 8: dbde_unpack_k<8>(w, mn, tile); break;
+    case 1: dbde_pack_store_k<1>(tile, mn, dst); break;
+    case 2: dbde_pack_store_k<2>(tile, mn, dst); break;
+    case 3: dbde_pack_store_k<3>(tile, mn, dst); break;
+    case 4: dbde_pack_store_k<4>(tile, mn, dst); break;
+    case 5: dbde_pack_store_k<5>(tile, mn, dst); break;
+    case 6: dbde_pack_store_k<6>(tile, mn, dst); break;
+    case 7: dbde_pack_store_k<7>(tile, mn, dst); break;
+    case 8: dbde_pack_store_k<8>(tile, mn, dst); break;
+    default: break;
+  }
+}
+
+DBDE_HD void dbde_load_unpack(const uint32_t* src, uint32_t off, uint32_t S,
+                              uint32_t mn, uint32_t k, uint32_t tile[16]) {
+  switch (k) {
+    case 1: dbde_load_unpack_k<1>(src, off, S, mn, tile); break;
+    case 2: dbde_load_unpack_k<2>(src, off, S, mn, tile); break;
+    case 3: dbde_load_unpack_k<3>(src, off, S, mn, tile); break;
+    case 4: dbde_load_unpack_k<4>(src, off, S, mn, tile); break;
+    case 5: dbde_load_unpack_k<5>(src, off, S, mn, tile); break;
+    case 6: dbde_load_unpack_k<6>(src, off, S, mn, tile); break;
+    case 7: dbde_load_unpack_k<7>(src, off, S, mn, tile); break;
+    case 8: dbde_load_unpack_k<8>(src, off, S, mn, tile); break;
     default: dbde_fill_tile(mn, tile); break;
   }
+}
+
+// The tile layout of the tiles backend (K6, K7): tiles_W is (16, Tp) u32 a
+// frame, word ww of tile t at tw[ww*Tp + t].  Thread t of a warp moving word
+// ww of its tile touches consecutive words.
+DBDE_HD void dbde_tile_w_load(const uint32_t* tw, size_t tp, size_t t,
+                              uint32_t tile[16]) {
+  DBDE_UNROLL
+  for (int ww = 0; ww < 16; ++ww) tile[ww] = tw[(size_t)ww * tp + t];
+}
+
+DBDE_HD void dbde_tile_w_store(uint32_t* tw, size_t tp, size_t t,
+                               const uint32_t tile[16]) {
+  DBDE_UNROLL
+  for (int ww = 0; ww < 16; ++ww) tw[(size_t)ww * tp + t] = tile[ww];
+}
+
+// Status words of K6's chained scan over a frame's blocks of tiles: a flag in
+// the high 32 bits and a word count in the low 32, stored and loaded as one
+// 64-bit word, so that a reader never sees a flag without its value.
+// Flag 0: not yet published; AGGREGATE: the block's own word count;
+// PREFIX: the words of the frame's stream up to and including the block.
+#define DBDE_STATUS_AGGREGATE 1u
+#define DBDE_STATUS_PREFIX 2u
+
+DBDE_HD uint64_t dbde_status(uint32_t flag, uint32_t value) {
+  return ((uint64_t)flag << 32) | value;
+}
+
+// One step of the look-back: fold a predecessor's status word into the
+// running base.  Returns 0 if the predecessor has published nothing yet (look
+// again), 1 to go on to the block before it, 2 when the base is complete.
+DBDE_HD int dbde_lookback_step(uint64_t status, uint32_t* base) {
+  const uint32_t flag = (uint32_t)(status >> 32);
+  if (flag != DBDE_STATUS_AGGREGATE && flag != DBDE_STATUS_PREFIX) return 0;
+  *base += (uint32_t)status;
+  return flag == DBDE_STATUS_PREFIX ? 2 : 1;
 }

@@ -11,28 +11,20 @@ or 1024-wide padding exists here.
 Dispatch is by the device of the tensor given: a CPU tensor goes to the
 plain PyTorch version, a CUDA tensor to the kernel.  If the kernel fails to
 build or to launch, the wrapper raises; nothing falls back.  Each wrapper
-counts its kernel launches in :data:`LAUNCHES`.
+counts its kernel launches in :data:`LAUNCHES` (shared with
+:mod:`.tile_layout`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from dbde_tpu.format import tile_grid
-
+from ..format import tile_grid
 from . import build
 from .bitpack import MAX_WORDS_PER_TILE, pack_words, tile_depths_mins, unpack_words_to_tiles
+from .launch import LAUNCHES, check, cuda_batch, launch, reset_launches  # noqa: F401
 from .payload import compact_payload, gather_windows
 from .tiling import pad_and_tile, untile
-
-# kernel launches per wrapper since the last reset_launches()
-LAUNCHES = {"encode_depths": 0, "encode_payload": 0, "decode": 0,
-            "encode_payload_u8": 0, "decode_u8": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # -- plain versions ----------------------------------------------------------
@@ -84,30 +76,10 @@ def decode_frames_u8_plain(mins, payload, H: int, W: int) -> torch.Tensor:
 # -- kernel wrappers ---------------------------------------------------------
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {shape}, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-
-
 def _cuda_tiles(device: torch.device, B: int, H: int, W: int) -> int:
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}: use a CPU or CUDA tensor")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernels' grid limit of 65535 frames")
+    cuda_batch(device, B)
     h, w = tile_grid(W, H)
     return h * w
-
-
-def _launch(name: str, fn, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):  # the launch's device; restored after
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        msg = build.load().dbde_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
-    LAUNCHES[name] += 1
 
 
 def _vec(t: torch.Tensor, W: int) -> int:
@@ -127,14 +99,14 @@ def encode_depths(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return encode_depths_plain(images)
     B, H, W = images.shape
     T = _cuda_tiles(images.device, B, H, W)
-    _check("images", images, torch.uint8, (B, H, W), images.device)
+    check("images", images, torch.uint8, (B, H, W), images.device)
     depths = torch.empty((B, T), dtype=torch.uint8, device=images.device)
     mins = torch.empty_like(depths)
     if B:
         lib = build.load()
-        _launch("encode_depths", lib.dbde_encode_depths, images.device,
-                images.data_ptr(), depths.data_ptr(), mins.data_ptr(), B, H, W,
-                _vec(images, W))
+        launch("encode_depths", lib.dbde_encode_depths, images.device,
+               images.data_ptr(), depths.data_ptr(), mins.data_ptr(), B, H, W,
+               _vec(images, W))
     return depths, mins
 
 
@@ -151,20 +123,20 @@ def encode_payload(images: torch.Tensor, depths: torch.Tensor, mins: torch.Tenso
     B, H, W = images.shape
     dev = images.device
     T = _cuda_tiles(dev, B, H, W)
-    _check("images", images, torch.uint8, (B, H, W), dev)
-    _check("depths", depths, torch.uint8, (B, T), dev)
-    _check("mins", mins, torch.uint8, (B, T), dev)
-    _check("offsets", offsets, torch.int32, (B, T), dev)
+    check("images", images, torch.uint8, (B, H, W), dev)
+    check("depths", depths, torch.uint8, (B, T), dev)
+    check("mins", mins, torch.uint8, (B, T), dev)
+    check("offsets", offsets, torch.int32, (B, T), dev)
     if out is None:
         out = torch.empty((B, T * MAX_WORDS_PER_TILE), dtype=torch.uint32, device=dev)
     elif out.ndim != 2 or out.shape[1] < T * MAX_WORDS_PER_TILE:
         raise ValueError(f"out must be (B, S) with S >= {T * MAX_WORDS_PER_TILE}, got {tuple(out.shape)}")
-    _check("out", out, torch.uint32, (B, out.shape[1]), dev)
+    check("out", out, torch.uint32, (B, out.shape[1]), dev)
     if B:
         lib = build.load()
-        _launch("encode_payload", lib.dbde_encode_payload, dev,
-                images.data_ptr(), depths.data_ptr(), mins.data_ptr(), offsets.data_ptr(),
-                out.data_ptr(), B, H, W, out.shape[1], _vec(images, W))
+        launch("encode_payload", lib.dbde_encode_payload, dev,
+               images.data_ptr(), depths.data_ptr(), mins.data_ptr(), offsets.data_ptr(),
+               out.data_ptr(), B, H, W, out.shape[1], _vec(images, W))
     return out
 
 
@@ -178,18 +150,18 @@ def decode_frames(depths: torch.Tensor, mins: torch.Tensor, offsets: torch.Tenso
     B = depths.shape[0]
     dev = depths.device
     T = _cuda_tiles(dev, B, H, W)
-    _check("depths", depths, torch.uint8, (B, T), dev)
-    _check("mins", mins, torch.uint8, (B, T), dev)
-    _check("offsets", offsets, torch.int32, (B, T), dev)
+    check("depths", depths, torch.uint8, (B, T), dev)
+    check("mins", mins, torch.uint8, (B, T), dev)
+    check("offsets", offsets, torch.int32, (B, T), dev)
     if payload.ndim != 2 or payload.shape[1] < 1:
         raise ValueError(f"payload must be (B, S) with S >= 1, got {tuple(payload.shape)}")
-    _check("payload", payload, torch.uint32, (B, payload.shape[1]), dev)
+    check("payload", payload, torch.uint32, (B, payload.shape[1]), dev)
     out = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
     if B:
         lib = build.load()
-        _launch("decode", lib.dbde_decode, dev,
-                depths.data_ptr(), mins.data_ptr(), offsets.data_ptr(), payload.data_ptr(),
-                out.data_ptr(), B, H, W, payload.shape[1], _vec(out, W))
+        launch("decode", lib.dbde_decode, dev,
+               depths.data_ptr(), mins.data_ptr(), offsets.data_ptr(), payload.data_ptr(),
+               out.data_ptr(), B, H, W, payload.shape[1], _vec(out, W))
     return out
 
 
@@ -204,18 +176,18 @@ def encode_payload_u8(images: torch.Tensor, mins: torch.Tensor,
     B, H, W = images.shape
     dev = images.device
     T = _cuda_tiles(dev, B, H, W)
-    _check("images", images, torch.uint8, (B, H, W), dev)
-    _check("mins", mins, torch.uint8, (B, T), dev)
+    check("images", images, torch.uint8, (B, H, W), dev)
+    check("mins", mins, torch.uint8, (B, T), dev)
     if out is None:
         out = torch.empty((B, T * MAX_WORDS_PER_TILE), dtype=torch.uint32, device=dev)
     elif out.ndim != 2 or out.shape[1] < T * MAX_WORDS_PER_TILE:
         raise ValueError(f"out must be (B, S) with S >= {T * MAX_WORDS_PER_TILE}, got {tuple(out.shape)}")
-    _check("out", out, torch.uint32, (B, out.shape[1]), dev)
+    check("out", out, torch.uint32, (B, out.shape[1]), dev)
     if B:
         lib = build.load()
-        _launch("encode_payload_u8", lib.dbde_encode_payload_u8, dev,
-                images.data_ptr(), mins.data_ptr(), out.data_ptr(), B, H, W, out.shape[1],
-                _vec(images, W), _pvec(out))
+        launch("encode_payload_u8", lib.dbde_encode_payload_u8, dev,
+               images.data_ptr(), mins.data_ptr(), out.data_ptr(), B, H, W, out.shape[1],
+               _vec(images, W), _pvec(out))
     return out
 
 
@@ -228,15 +200,15 @@ def decode_frames_u8(mins: torch.Tensor, payload: torch.Tensor, H: int, W: int) 
     B = mins.shape[0]
     dev = mins.device
     T = _cuda_tiles(dev, B, H, W)
-    _check("mins", mins, torch.uint8, (B, T), dev)
+    check("mins", mins, torch.uint8, (B, T), dev)
     if payload.ndim != 2 or payload.shape[1] < T * MAX_WORDS_PER_TILE:
         raise ValueError(f"payload must be (B, S) with S >= {T * MAX_WORDS_PER_TILE}, "
                          f"got {tuple(payload.shape)}")
-    _check("payload", payload, torch.uint32, (B, payload.shape[1]), dev)
+    check("payload", payload, torch.uint32, (B, payload.shape[1]), dev)
     out = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
     if B:
         lib = build.load()
-        _launch("decode_u8", lib.dbde_decode_u8, dev,
-                mins.data_ptr(), payload.data_ptr(), out.data_ptr(), B, H, W,
-                payload.shape[1], _vec(out, W), _pvec(payload))
+        launch("decode_u8", lib.dbde_decode_u8, dev,
+               mins.data_ptr(), payload.data_ptr(), out.data_ptr(), B, H, W,
+               payload.shape[1], _vec(out, W), _pvec(payload))
     return out

@@ -1,17 +1,19 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
-``csrc/dbde_kernels.cu`` (with ``csrc/dbde_tile.cuh``) compiles into
+Every ``csrc/*.cu`` (with the headers ``csrc/*.cuh``) compiles into
 ``dbde_tpu_torch/build/libdbde_tpu_torch_<sha12>.so``, where the tag hashes
 the sources, so an edited kernel rebuilds and an unchanged one loads at
-once.  The library has a plain C interface: no PyTorch headers, which keeps
-the build to seconds.  Building needs the CUDA toolkit's ``nvcc`` (on
-``PATH`` or under ``/usr/local/cuda/bin``) and happens at first use;
-failure raises.
+once.  Each source compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects.  The library has a plain
+C interface: no PyTorch headers, which keeps the build to seconds.
+Building needs the CUDA toolkit's ``nvcc`` (on ``PATH`` or under
+``/usr/local/cuda/bin``) and happens at first use; failure raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -20,19 +22,24 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("dbde_kernels.cu", "dbde_tile.cuh")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
 
 
+def sources() -> list[str]:
+    """The kernel sources (``*.cu``), each compiled on its own."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
 def library_path() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libdbde_tpu_torch_{h.hexdigest()[:12]}.so")
 
@@ -58,14 +65,40 @@ def build(ptxas_verbose: bool = False) -> tuple[str, str]:
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()),
-           "-o", tmp, os.path.join(CSRC, "dbde_kernels.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
-    return path, proc.stderr
+    nvcc = _nvcc()
+    stem = f"{path}.{os.getpid()}"
+    srcs, objects, procs = sources(), [], []
+    for src in srcs:
+        obj = f"{stem}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()),
+               "-c", "-o", obj, src]
+        objects.append(obj)
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    log, failed = [], []
+    for src, proc in zip(srcs, procs):
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        log.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = f"{stem}.tmp"
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objects],
+                              capture_output=True, text=True, timeout=600)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return path, "".join(log)
 
 
 def load() -> ctypes.CDLL:
@@ -81,6 +114,8 @@ def load() -> ctypes.CDLL:
                 "dbde_decode": [P, P, P, P, P, I, I, I, I, I, P],
                 "dbde_encode_payload_u8": [P, P, P, I, I, I, I, I, I, P],
                 "dbde_decode_u8": [P, P, P, I, I, I, I, I, I, P],
+                "dbde_encode_tiles": [P, P, P, P, P, P, I, I, I, I, P],
+                "dbde_decode_tiles": [P, P, P, P, I, I, I, I, P],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from dbde_tpu.format import tile_grid
+from ..format import tile_grid
 
 
 def pad_and_tile(images: torch.Tensor) -> torch.Tensor:

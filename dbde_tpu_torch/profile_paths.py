@@ -1,13 +1,16 @@
 """Device time by kernel on the codec's encode and decode paths.
 
-    python3 -m dbde_tpu_torch.profile_paths [--iters 20] [--batch 16] [--size 2048]
+    python3 -m dbde_tpu_torch.profile_paths [--iters 20] [--batch 16]
+        [--height 2048] [--width 2048] [--backend band|tiles]
 
-Needs a CUDA GPU.  For camera content (mixed depths: K1, scan, K2 / scan,
-K3) and random content (every tile depth 8: K1, K4 / K5), runs
-``DbdeCodec.encode`` and ``DbdeCodec.decode_dispatch`` ``iters`` times
-each under ``torch.profiler`` and prints, per path, every device activity
-(kernels and copies) with its time per iteration, then the device idle
-share: 1 - (time covered by device activity) / (first start to last end).
+Needs a CUDA GPU.  For camera content (band backend, mixed depths: K1,
+scan, K2 / scan, K3) and random content (every tile depth 8: K1, K4 /
+K5; the tiles backend runs its layout transform and K6 / K7 on both),
+runs ``DbdeCodec.encode`` and ``DbdeCodec.decode_dispatch`` ``iters``
+times each under ``torch.profiler`` and prints, per path, every device
+activity (kernels and copies) with its time per iteration, then the
+device idle share: 1 - (time covered by device activity) / (first start
+to last end).
 Decode is given host depths, as the reader gives them (the uniform check
 runs on the host; the general path copies them to the device), with mins
 and payload already on the device.  The profiler
@@ -27,7 +30,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from dbde_tpu.bench_core import make_content
+from .bench_core import make_content
 
 from .codec import DbdeCodec
 
@@ -81,23 +84,25 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--size", type=int, default=2048, help="frame height and width")
+    ap.add_argument("--height", type=int, default=2048)
+    ap.add_argument("--width", type=int, default=2048)
+    ap.add_argument("--backend", default="band", choices=("band", "tiles"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_paths needs a CUDA GPU and none is visible")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"{smi.stdout.strip()}; torch {torch.__version__}; CUDA {torch.version.cuda}")
-    n = args.size
-    codec = DbdeCodec(n, n, device="cuda")
+    H, W = args.height, args.width
+    codec = DbdeCodec(H, W, device="cuda", backend=args.backend)
     for content in ("camera", "random"):
-        frames = make_content(n, n, args.batch, kind=content)
+        frames = make_content(W, H, args.batch, kind=content)
         x = torch.from_numpy(frames).to(codec.device)
         enc = codec.encode(x)
         depths = enc.depths.cpu().numpy()
         if not np.array_equal(codec.decode(depths, enc.mins, enc.payload), frames):
             raise AssertionError(f"{content}: decode did not return the frames")
-        shape = f"{args.batch}x{n}x{n} {content}"
+        shape = f"{args.batch}x{H}x{W} {content}, backend {args.backend}"
         profile_path(f"encode path, {shape}", lambda: codec.encode(x), args.iters)
         profile_path(f"decode path, {shape}",
                      lambda: codec.decode_dispatch(depths, enc.mins, enc.payload), args.iters)

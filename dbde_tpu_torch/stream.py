@@ -1,57 +1,285 @@
 """Streaming DBDE file reader/writer on the PyTorch codec.
 
-The record walk, readahead, release-gated parse pool, vectored writes and
-iterators are those of :mod:`dbde_tpu.stream`; the classes here subclass
-them and swap in :class:`dbde_tpu_torch.codec.DbdeCodec`.  Only the two
-methods that reach the JAX package's codec module are overridden:
-``_read_batch_arrays`` (its numpy parse fallback) and ``_drain_one``
-(record assembly from the encoded batch).
+Counterpart of :mod:`dbde_tpu.stream` (the reference's file walker,
+dbde_util.cpp:362-426, redesigned for a batched device codec), with its
+own classes:
 
-The pool's release gate holds as in the base class: a parse slot is
-released only after ``materialize``, and the host→device copy of a parsed
-batch (``torch.from_numpy(...).to(device)`` from pageable memory) has
-finished reading the host buffer by the time it returns.
+  * :class:`DbdeReader` — scans frame records on the host (records are
+    self-delimiting through their ``n64`` field), batches B frames of
+    fields and dispatches one decode per batch on ``device``.  The next
+    batch is parsed and dispatched before the current one is materialized,
+    so host parsing and the host→device copy overlap device compute.
+  * :class:`DbdeWriter` — encodes frame batches on ``device`` and writes
+    records from the host, with the same pipeline depth.
+
+``device`` is a torch device: ``"cpu"`` runs the codec's plain PyTorch
+versions, the default runs the CUDA kernels.  Both classes are context
+managers that close and free what they hold.
+
+The reader's release gate: a pooled parse slot returns to the pool only
+after the batch decoded from it is materialized.  The host→device copy of
+a parsed batch (``torch.from_numpy(...).to(device)`` from pageable memory)
+has finished reading the host buffer by the time it returns, and
+materializing waits for everything enqueued before it, so a released slot
+is never read again.
 """
 
 from __future__ import annotations
 
+import collections
+import io
+import mmap
+import os
+import queue
+import stat
+import struct
+import threading
+from typing import Iterator
+
 import numpy as np
 
-from dbde_tpu import stream as _base
-from dbde_tpu.format import FRAME_HEADER_BYTES, unpack_frame_header
-
 from .codec import DbdeCodec, _host, pack_frames_bytes, record_iovecs, unpack_frames_bytes
+from .format import (
+    FRAME_HEADER_BYTES,
+    MAX_DIM,
+    MAX_PIXELS,
+    VIDEO_HEADER_BYTES,
+    FrameHeader,
+    VideoHeader,
+    max_packed_image_size,
+    tile_grid,
+    unpack_frame_header,
+    unpack_video_header,
+)
+from .native import binding as native_binding
 
-__all__ = ["DbdeReader", "DbdeWriter", "read_video", "write_video"]
+__all__ = ["DbdeReader", "DbdeWriter", "read_video", "write_video", "scan_record_size"]
 
 
-class DbdeReader(_base.DbdeReader):
+def scan_record_size(buf, offset: int, T: int) -> int | None:
+    """Byte size of the frame record (header + data) at ``offset``.
+
+    Validates the three count fields like the reference decoder
+    (dbde_util.cpp:295-303) but without touching the payload.  Returns None
+    if the buffer is too short or the record is corrupt.
+    """
+    if len(buf) - offset < FRAME_HEADER_BYTES + 12 + 2 * T:
+        return None
+    (u64s,) = struct.unpack_from("<I", buf, offset)
+    if u64s != 2:
+        return None
+    base = offset + FRAME_HEADER_BYTES
+    (nb,) = struct.unpack_from("<i", buf, base)
+    if nb != T:
+        return None
+    (nm,) = struct.unpack_from("<i", buf, base + 4 + T)
+    if nm != T:
+        return None
+    (n64,) = struct.unpack_from("<i", buf, base + 8 + 2 * T)
+    depths = np.frombuffer(buf, np.uint8, T, base + 4)
+    if n64 != int(depths.astype(np.int64).sum()) or n64 < 0:
+        return None
+    size = FRAME_HEADER_BYTES + 12 + 2 * T + 8 * n64
+    if len(buf) - offset < size:
+        return None
+    return size
+
+
+try:
+    _IOV_MAX = min(os.sysconf("SC_IOV_MAX"), 1024)
+except (AttributeError, OSError, ValueError):
+    _IOV_MAX = 1024
+
+
+class _GatedPool:
+    """Release-gated parse-buffer pool for the reader's device pipeline.
+
+    A slot returns to the free list only when the consumer releases it,
+    which the reader does after materializing the batch decoded from it
+    (see the module docstring).  Steady state allocates ``pipeline + 1``
+    slots per array-shape key and reuses them from then on.
+    """
+
+    def __init__(self):
+        self._free: dict = {}
+
+    def acquire(self, key):
+        lst = self._free.get(key)
+        return lst.pop() if lst else None
+
+    def release(self, key, slot) -> None:
+        self._free.setdefault(key, []).append(slot)
+
+
+def _writev_all(fd: int, iov: list) -> int:
+    """``os.writev`` a whole buffer list (in chunks of IOV_MAX, resuming
+    partial writes).  The kernel's gather copy into the page cache is the
+    only pass over the bytes: no host-side assembly buffer."""
+    views = [memoryview(b).cast("B") for b in iov]
+    total = 0
+    i = 0
+    while i < len(views):
+        n = os.writev(fd, views[i : i + _IOV_MAX])
+        if n <= 0 and any(v.nbytes for v in views[i : i + _IOV_MAX]):
+            raise OSError("writev wrote 0 bytes")
+        total += n
+        while i < len(views) and n >= views[i].nbytes:
+            n -= views[i].nbytes
+            i += 1
+        if i < len(views) and n:
+            views[i] = views[i][n:]
+    return total
+
+
+def _native_lib(use_native: bool):
+    return native_binding if use_native and native_binding.native_available() else None
+
+
+class DbdeReader:
     """Batched streaming reader over a ``.dbde`` file, decoding on ``device``.
 
     >>> with DbdeReader("video.dbde", batch_size=16) as r:
     ...     for headers, frames in r:   # frames: (b, H, W) u8 numpy
     ...         ...
+
+    ``pipeline`` batches are in flight on the device.  ``reuse_buffers=N``
+    rotates :meth:`iter_raw`'s parse arrays through N slots (a batch's
+    arrays are overwritten N batches later: keep 0 if the consumer retains
+    them); decoding always pools through the release gate instead.
     """
 
-    def __init__(self, path_or_file, batch_size: int = 8, device="cuda", **kwargs):
-        super().__init__(path_or_file, batch_size=batch_size, device=False, **kwargs)
+    def __init__(self, path_or_file, batch_size: int = 8, device="cuda",
+                 use_native: bool = True, hz_as_integer: bool = False,
+                 pipeline: int = 2, readahead: bool = True, reuse_buffers: int = 0):
+        self._own_file = isinstance(path_or_file, (str, os.PathLike))
+        self._f = open(path_or_file, "rb") if self._own_file else path_or_file
+        self._reader_thread = None
+        self._mm = None
         try:
-            self._codec = DbdeCodec(height=self.height, width=self.width, device=device)
+            self._open(batch_size, device, use_native, hz_as_integer, pipeline,
+                       readahead, reuse_buffers)
         except BaseException:
             self.close()
             raise
-        self._device = True
 
-    def _read_batch_arrays(self, pooled: bool = True, pool=None):
-        """Parse up to batch_size records → (headers, depths, mins, payload);
-        the base class's method with this package's numpy parser."""
+    def _open(self, batch_size, device, use_native, hz_as_integer, pipeline,
+              readahead, reuse_buffers) -> None:
+        self.batch_size = int(batch_size)
+        self.pipeline = max(1, int(pipeline))
+        self._readahead = bool(readahead)
+        self._gather_scratch = {"nslots": int(reuse_buffers)} if reuse_buffers else None
+        self._native = _native_lib(use_native)
+        raw = self._f.read(VIDEO_HEADER_BYTES)
+        if len(raw) < VIDEO_HEADER_BYTES:
+            raise ValueError("file too short for a video header")
+        # hz_as_integer: the reference's DBDE_HZ_AS_INTEGER read variant
+        # (dbde_util.cpp:352-356), frame_hz stored as a rounded u64
+        self.header, _ = unpack_video_header(raw, hz_as_integer=hz_as_integer)
+        if not self.header.ok:
+            raise ValueError(f"bad video header (u64s={self.header.u64s})")
+        self.height = int(self.header.height)
+        self.width = int(self.header.width)
+        # the reference walker's geometry caps (dbde_util.cpp:374-378)
+        if not (0 < self.height <= MAX_DIM and 0 < self.width <= MAX_DIM
+                and self.height * self.width <= MAX_PIXELS):
+            raise ValueError("bad frame geometry")
+        h, w = tile_grid(self.width, self.height)
+        self.tiles = h * w
+        # worst-case record + slack, times a batch of lookahead
+        self._chunk = max(1 << 20, (max_packed_image_size(self.width, self.height) + 64)
+                          * self.batch_size)
+        self._buf = bytearray()
+        self._pos = 0
+        self._eof = False
+        # a regular file is walked zero-copy through mmap: no readahead
+        # thread and no append/compact copies.  Pipes, sockets and BytesIO
+        # keep the buffered path.
+        try:
+            if stat.S_ISREG(os.fstat(self._f.fileno()).st_mode):
+                self._mm = mmap.mmap(self._f.fileno(), 0, access=mmap.ACCESS_READ)
+                self._buf = self._mm
+                self._pos = VIDEO_HEADER_BYTES
+                self._eof = True  # the map is the whole file; never refill
+        except (OSError, ValueError, io.UnsupportedOperation):
+            self._mm = None
+        self.frames_read = 0
+        self._codec = DbdeCodec(height=self.height, width=self.width, device=device)
+
+    # -- host record scanning ------------------------------------------------
+
+    def _start_readahead(self) -> None:
+        """Background file reader: overlaps file IO with parsing and device
+        work (the reference's memmove+fread refill, made asynchronous)."""
+        self._chunks = queue.Queue(maxsize=4)
+        stop = self._stop_read = threading.Event()
+        f = self._f
+
+        def run():
+            while not stop.is_set():
+                data = f.read(self._chunk)
+                while not stop.is_set():
+                    try:
+                        self._chunks.put(data, timeout=0.2)
+                        break
+                    except queue.Full:
+                        continue
+                if not data:
+                    return
+
+        self._reader_thread = threading.Thread(target=run, daemon=True)
+        self._reader_thread.start()
+
+    def _fill(self) -> None:
+        """Append more file bytes.  Never compacts (record offsets collected
+        by the current batch must stay valid); compaction happens between
+        batches in :meth:`_read_batch_arrays`."""
+        if self._eof:
+            return
+        if self._readahead:
+            if self._reader_thread is None:
+                self._start_readahead()
+            data = self._chunks.get()
+        else:
+            data = self._f.read(self._chunk)
+        if not data:
+            self._eof = True
+        else:
+            self._buf.extend(data)
+
+    def _next_record(self):
+        """→ (FrameHeader, record offset, record size) or None at EOF/corruption."""
+        while True:
+            if self._native is not None:
+                size = self._native.record_size(self._buf, self._pos, self.tiles) or None
+            else:
+                size = scan_record_size(self._buf, self._pos, self.tiles)
+            if size is not None:
+                off = self._pos
+                self._pos += size
+                fh, _ = unpack_frame_header(self._buf, off)
+                return fh, off, size
+            if self._eof:
+                return None
+            self._fill()
+
+    def _read_batch_arrays(self, pool: _GatedPool | None = None):
+        """Parse up to batch_size records → (headers, (depths, mins,
+        payload, n64)), or None at the end.
+
+        The native scanner and gather when available (zero-copy over the
+        read buffer), the numpy parser otherwise.  With ``pool``, the
+        arrays come from a release-gated slot and the result grows a third
+        element, ``release``, a zero-argument callable that returns the
+        slot.
+        """
         if self._pos > 0 and self._mm is None:
-            # compact between batches (offsets below stay valid); the mmap
-            # path keeps absolute offsets and never compacts
+            # compact between batches; the mmap path keeps absolute offsets
             del self._buf[: self._pos]
             self._pos = 0
         headers, offsets, max_n64 = [], [], 0
         if self._native is not None and self._mm is not None:
+            # the map is the whole file, so a short scan is the end (or a
+            # corrupt record): no refill to try
             offs, sizes = self._native.scan_records(
                 self._buf, self._pos, self.tiles, self.batch_size)
             for off, size in zip(offs, sizes):
@@ -87,9 +315,8 @@ class DbdeReader(_base.DbdeReader):
                                                 stride, out=slot)
             return headers, arrays, lambda: pool.release(key, slot)
         if self._native is not None:
-            scratch = self._gather_scratch if pooled else None
             arrays = self._native.gather_fields(self._buf, offsets, self.tiles, stride,
-                                                scratch=scratch)
+                                                scratch=self._gather_scratch)
         else:
             buf = self._buf if self._mm is not None else bytes(self._buf)
             arrays = unpack_frames_bytes(buf, self.width, self.height, offsets, stride)
@@ -97,19 +324,123 @@ class DbdeReader(_base.DbdeReader):
             return headers, arrays, lambda: None  # fresh arrays: nothing to gate
         return headers, arrays
 
+    # -- iteration -----------------------------------------------------------
 
-class DbdeWriter(_base.DbdeWriter):
-    """Batched streaming writer producing a ``.dbde`` file, encoding on ``device``."""
+    def __iter__(self) -> Iterator[tuple[list[FrameHeader], np.ndarray]]:
+        pending = collections.deque()
+        pool = _GatedPool()
+
+        def dispatch() -> bool:
+            batch = self._read_batch_arrays(pool=pool)
+            if batch is None:
+                return False
+            headers, (depths, mins, payload, _), release = batch
+            pending.append((headers, self._codec.decode_dispatch(depths, mins, payload),
+                            release))
+            return True
+
+        while len(pending) < self.pipeline and dispatch():
+            pass
+        while pending:
+            dispatch()  # parse + dispatch the next batch while this one runs
+            headers, frames, release = pending.popleft()
+            self.frames_read += len(headers)
+            out = self._codec.materialize(frames)  # waits for the device
+            release()  # decode output ready ⇒ the slot's copy is done
+            yield headers, out
+
+    def iter_raw(self):
+        """Yield (headers, (depths, mins, payload, n64)) batches without
+        decoding: the walker for consumers of the encoded fields.  Array
+        shapes as :func:`dbde_tpu_torch.codec.unpack_frames_bytes` gives
+        them, at the reader's short payload stride."""
+        while True:
+            batch = self._read_batch_arrays()
+            if batch is None:
+                return
+            headers, arrays = batch
+            self.frames_read += len(headers)
+            yield headers, arrays
+
+    def read_all(self) -> tuple[list[FrameHeader], np.ndarray]:
+        headers, chunks = [], []
+        for hs, frames in self:
+            headers.extend(hs)
+            chunks.append(frames)
+        if not chunks:
+            return [], np.empty((0, self.height, self.width), np.uint8)
+        return headers, np.concatenate(chunks, axis=0)
+
+    def close(self) -> None:
+        if self._reader_thread is not None:
+            self._stop_read.set()
+            try:
+                self._chunks.get_nowait()  # unblock a pending put
+            except queue.Empty:
+                pass
+            self._reader_thread.join(timeout=2.0)
+            self._reader_thread = None
+        if self._mm is not None:
+            self._mm.close()
+            self._mm = None
+        if self._own_file and self._f is not None:
+            self._f.close()
+        self._f = None
+        self._buf = bytearray()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class DbdeWriter:
+    """Batched streaming writer producing a ``.dbde`` file, encoding on ``device``.
+
+    Records reach the sink by one of three paths: a vectored ``writev``
+    straight from the encoded host arrays when the sink has a file
+    descriptor; the native record assembler into a reused buffer otherwise;
+    and the numpy record packer when the native library is unavailable.
+    """
 
     def __init__(self, path_or_file, height: int, width: int, frame_hz: float = 1.0,
-                 device="cuda", **kwargs):
-        codec = DbdeCodec(height=height, width=width, device=device)  # before the file opens
-        super().__init__(path_or_file, height, width, frame_hz=frame_hz, device=False, **kwargs)
-        self._codec = codec
-        self._device = True
+                 device="cuda", hz_as_integer: bool = False, use_native: bool = True,
+                 pipeline: int = 2):
+        # the codec first: a bad device raises before the file is created
+        self._codec = DbdeCodec(height=height, width=width, device=device)
+        self._own_file = isinstance(path_or_file, (str, os.PathLike))
+        self._f = open(path_or_file, "wb") if self._own_file else path_or_file
+        try:
+            self._fd = self._f.fileno()
+        except (AttributeError, OSError, ValueError, io.UnsupportedOperation):
+            self._fd = None  # BytesIO and friends → assembled records
+        self._native = _native_lib(use_native)
+        self.height, self.width = int(height), int(width)
+        self.header = VideoHeader(height=self.height, width=self.width, frame_hz=frame_hz)
+        self._f.write(self.header.pack(hz_as_integer))
+        self.frames_written = 0
+        self.pipeline = max(1, int(pipeline))  # batches in flight on the device
+        self._pending = collections.deque()
+        self._asm_scratch: list = []  # reused assemble_records output buffer
+
+    def write(self, frames: np.ndarray, indices=None, elapsed_ns=None) -> None:
+        """Queue a (B, H, W) or (H, W) u8 batch for encoding."""
+        frames = np.asarray(frames, dtype=np.uint8)
+        if frames.ndim == 2:
+            frames = frames[None]
+        B = frames.shape[0]
+        if indices is None:
+            indices = range(self.frames_written, self.frames_written + B)
+        indices = [int(i) for i in indices]
+        ns = [int(x) for x in elapsed_ns] if elapsed_ns is not None else [0] * B
+        self.frames_written += B
+        self._pending.append((self._codec.encode(frames), indices, ns))
+        while len(self._pending) > self.pipeline:
+            self._drain_one()
 
     def _drain_one(self) -> None:
-        enc, frames, indices, ns = self._pending.popleft()
+        enc, indices, ns = self._pending.popleft()
         if self._fd is None and self._native is None:
             for rec in pack_frames_bytes(enc, indices=indices, elapsed_ns=ns):
                 self._f.write(rec)
@@ -121,13 +452,26 @@ class DbdeWriter(_base.DbdeWriter):
             # vectored write straight from the host arrays (see record_iovecs)
             iov = record_iovecs(depths, mins, payload, n64, indices, ns)
             self._f.flush()
-            _base._writev_all(self._fd, iov)
+            _writev_all(self._fd, iov)
         else:
-            # zero-copy view over the writer's reused scratch buffer —
+            # zero-copy view over the writer's reused scratch buffer,
             # written out before the next _drain_one touches it
             self._f.write(self._native.assemble_records(
                 depths, mins, payload, n64, indices=indices, elapsed_ns=ns,
                 scratch=self._asm_scratch))
+
+    def close(self) -> None:
+        while self._pending:
+            self._drain_one()
+        if self._own_file and self._f is not None:
+            self._f.close()
+        self._f = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 def write_video(path, frames, frame_hz: float = 1.0, device="cuda", batch_size: int = 16) -> None:

@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from dbde_tpu.bench_core import make_adversarial, make_content
-from dbde_tpu.golden_vectors import GOLDEN_8x16_IMAGE, README_10x10_IMAGE
+from dbde_tpu_torch.bench_core import make_adversarial, make_content, make_depth_runs
+from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_IMAGE, README_10x10_IMAGE
 from dbde_tpu_torch import read_video, write_video
-from dbde_tpu_torch.ops import band, word_offsets
+from dbde_tpu_torch.codec import DbdeCodec, pack_frames_bytes
+from dbde_tpu_torch.ops import band, tile_layout, word_offsets
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -41,6 +42,9 @@ GEOMETRIES = {
     "adversarial maxd 5": lambda: make_adversarial(64, 40, 3, maxd=5, seed=2),
     "camera": lambda: make_content(256, 64, 2),
     "random ragged": lambda: make_content(317, 45, 2, kind="random"),
+    "depth runs across block seams": lambda: make_depth_runs(40000, 16, 2, seed=3),
+    "T mod 1024 = 1": lambda: make_adversarial(8200, 8, 2, seed=4),
+    "T mod 1024 = 1023": lambda: make_adversarial(16376, 8, 2, seed=5),
 }
 
 
@@ -125,7 +129,8 @@ def test_main_path_launches_every_kernel(cuda, tmp_path):
     _, _, out = read_video(str(tmp_path / "v.dbde"), device=cuda, batch_size=2)
     np.testing.assert_array_equal(out, frames)
     assert band.LAUNCHES == {"encode_depths": 3, "encode_payload": 2, "decode": 2,
-                             "encode_payload_u8": 1, "decode_u8": 1}
+                             "encode_payload_u8": 1, "decode_u8": 1,
+                             "encode_tiles": 0, "decode_tiles": 0}
 
 
 def test_launch_leaves_the_current_device(cuda):
@@ -142,11 +147,17 @@ def test_launch_leaves_the_current_device(cuda):
 def test_profile_paths_sees_the_kernels(cuda, capsys):
     from dbde_tpu_torch import profile_paths
 
-    assert profile_paths.main(["--iters", "2", "--batch", "2", "--size", "64"]) == 0
+    assert profile_paths.main(["--iters", "2", "--batch", "2", "--height", "64",
+                               "--width", "64"]) == 0
     text = capsys.readouterr().out
     for kernel in ("encode_depths_kernel", "encode_payload_kernel", "decode_kernel",
                    "encode_payload_u8_kernel", "decode_u8_kernel"):
         assert kernel in text
+    assert text.count("idle share") == 4
+    assert profile_paths.main(["--iters", "2", "--batch", "2", "--height", "16",
+                               "--width", "320", "--backend", "tiles"]) == 0
+    text = capsys.readouterr().out
+    assert "encode_tiles_kernel" in text and "decode_tiles_kernel" in text
     assert text.count("idle share") == 4
 
 
@@ -158,3 +169,59 @@ def test_wrappers_reject_bad_tensors(cuda):
     with pytest.raises(ValueError):
         band.decode_frames(d, d, torch.zeros((1, 1), dtype=torch.int64, device=cuda),
                            torch.zeros((1, 16), dtype=torch.uint32, device=cuda), 8, 8)
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_tiles_kernels_match_plain(cuda, name):
+    """K6 and K7: equal to their plain versions, K6's buffer equal to K2's
+    (stream and untouched sentinels), its depths and minima K1's, and K7
+    decodes the shortest stride with garbage after each frame's stream."""
+    frames = GEOMETRIES[name]()
+    B, H, W = frames.shape
+    x = torch.from_numpy(np.ascontiguousarray(frames)).to(cuda)
+    d, m = band.encode_depths(x)
+    T = d.shape[1]
+    offsets, total = word_offsets(d)
+    fill = np.full((B, 16 * T), SENTINEL, np.uint32)
+    p2 = band.encode_payload(x, d, m, offsets, out=torch.from_numpy(fill.copy()).to(cuda))
+    tw = tile_layout.image_to_tiles_w(x)
+    got = tile_layout.encode_tiles(tw, T, out=torch.from_numpy(fill.copy()).to(cuda))
+    want = tile_layout.encode_tiles_plain(tw, T, out=torch.from_numpy(fill).to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    d6, m6, p6, n6 = got
+    np.testing.assert_array_equal(_u32(p6), _u32(p2))
+    assert torch.equal(d6[:, :T], d) and torch.equal(m6[:, :T], m)
+    assert torch.equal(n6, total // 2)
+
+    n64 = n6.cpu().numpy()
+    S = max(2 * int(n64.max()), 1)
+    short = np.random.default_rng(1).integers(0, 1 << 32, (B, S), dtype=np.uint32)
+    for b in range(B):
+        short[b, : 2 * n64[b]] = _u32(p6)[b, : 2 * n64[b]]
+    for src in (p6, torch.from_numpy(short).to(cuda)):
+        out = tile_layout.decode_tiles(d6, m6, src)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_u32(out), _u32(tile_layout.decode_tiles_plain(d6, m6, src)))
+        np.testing.assert_array_equal(tile_layout.tiles_w_to_image(out, H, W).cpu().numpy(), frames)
+
+
+def test_tiles_backend_launches_one_k6_and_one_k7(cuda):
+    frames = make_depth_runs(8000, 24, 3, seed=6)
+    codec = DbdeCodec(24, 8000, device=cuda, backend="tiles")
+    band.reset_launches()
+    enc = codec.encode(frames)
+    out = codec.decode(enc.depths.cpu().numpy(), enc.mins, enc.payload)
+    assert {k: v for k, v in band.LAUNCHES.items() if v} == {"encode_tiles": 1, "decode_tiles": 1}
+    np.testing.assert_array_equal(out, frames)
+    assert pack_frames_bytes(enc) == pack_frames_bytes(DbdeCodec(24, 8000, device="cpu").encode(frames))
+
+
+def test_tiles_wrappers_reject_bad_tensors(cuda):
+    tw = torch.zeros((1, 16, 1000), dtype=torch.uint32, device=cuda)
+    with pytest.raises(ValueError):
+        tile_layout.encode_tiles(tw, 10)  # Tp not a multiple of 1024
+    d = torch.zeros((1, 1024), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        tile_layout.decode_tiles(d, d, torch.zeros((1, 16), dtype=torch.int32, device=cuda))

@@ -15,6 +15,7 @@ import torch
 from dbde_tpu import ref_numpy as ref
 from dbde_tpu import stream as jax_stream
 from dbde_tpu.bench_core import make_adversarial, make_content
+from dbde_tpu_torch.bench_core import make_depth_runs
 from dbde_tpu.golden_vectors import GOLDEN_8x16_FILE, GOLDEN_8x16_IMAGE, README_10x10_IMAGE
 from dbde_tpu_torch import DbdeReader, DbdeWriter, read_video, write_video
 from dbde_tpu_torch.codec import unpack_frames_bytes
@@ -139,9 +140,13 @@ def test_unpack_frames_bytes_default_stride(frames, jax_file):
 
 
 NO_JAX = """
-import os, sys, tempfile
+import importlib, importlib.util, os, pkgutil, sys, tempfile
 import numpy as np
 import dbde_tpu_torch
+for mod in pkgutil.walk_packages(dbde_tpu_torch.__path__, "dbde_tpu_torch."):
+    importlib.import_module(mod.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from dbde_tpu_torch import read_video, write_video
 frames = np.random.default_rng(0).integers(0, 256, (3, 12, 20)).astype(np.uint8)
 with tempfile.TemporaryDirectory() as d:
@@ -149,15 +154,17 @@ with tempfile.TemporaryDirectory() as d:
     write_video(path, frames, device="cpu", batch_size=2)
     _, _, out = read_video(path, device="cpu", batch_size=2)
 assert (out == frames).all()
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "dbde_tpu"))
 assert not leaked, leaked
-print("no-jax ok")
+print("no-jax ok", len([m for m in sys.modules if m.startswith("dbde_tpu_torch")]))
 """
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter (this one has jax from conftest), a full write
-    and read through the port leaves jax out of sys.modules."""
+    """In a fresh interpreter (this one has jax from conftest), importing
+    every module of the port, loading chip_smoke.py and a full write and
+    read on the CPU leave jax and the JAX package out of sys.modules."""
     proc = subprocess.run([sys.executable, "-c", NO_JAX], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -172,7 +179,7 @@ def _chip_smoke():
 
 
 def test_chip_smoke_rehearsal_on_cpu():
-    """Phases 2 and 3 of chip_smoke.py at a tiny size, plain versions only."""
+    """Phases 2, 3 and 3b of chip_smoke.py at a tiny size, plain versions only."""
     smoke = _chip_smoke()
     cpu = torch.device("cpu")
     errs = smoke.check_kernels(cpu, [
@@ -180,9 +187,11 @@ def test_chip_smoke_rehearsal_on_cpu():
         ("readme", README_10x10_IMAGE[None]),
         ("adversarial", make_adversarial(43, 21, 2, maxd=8, seed=1)),
         ("camera", make_content(40, 24, 2)),
+        ("depth runs across block seams", make_depth_runs(20000, 8, 2, seed=2)),
     ])
     assert errs == dict.fromkeys(("encode_depths", "encode_payload", "decode",
-                                  "encode_payload_u8", "decode_u8"), 0)
+                                  "encode_payload_u8", "decode_u8",
+                                  "encode_tiles", "decode_tiles"), 0)
     frames = np.concatenate([make_content(40, 24, 3), make_content(40, 24, 2, kind="random")])
     launches, _ = smoke.check_main_path(cpu, frames, batch=2)
     assert set(launches.values()) == {0}
@@ -190,7 +199,10 @@ def test_chip_smoke_rehearsal_on_cpu():
     # takes the general pair, the all-random batch the uniform pair
     assert smoke.expected_launches(frames, batch=2) == {
         "encode_depths": 3, "encode_payload": 2, "decode": 2,
-        "encode_payload_u8": 1, "decode_u8": 1}
+        "encode_payload_u8": 1, "decode_u8": 1, "encode_tiles": 0, "decode_tiles": 0}
+    launches, _ = smoke.check_tiles_path(cpu, [make_content(40, 24, 2),
+                                               make_content(40, 24, 2, kind="random")])
+    assert set(launches.values()) == {0}
 
 
 def test_chip_smoke_main_needs_a_gpu():
@@ -202,12 +214,32 @@ def test_chip_smoke_main_needs_a_gpu():
 
 def test_chip_smoke_timing_cases_on_cpu(monkeypatch):
     """Phase 4's cases run (each once, untimed) on the plain versions: the
-    uniform pair is timed only on all-depth-8 content."""
+    uniform pair is timed only on all-depth-8 content; every kernel timed
+    has a bound."""
     smoke = _chip_smoke()
     monkeypatch.setattr(smoke, "_time_ms", lambda fn, iters: (fn(), 1.0)[1])
     cpu = torch.device("cpu")
-    common = {"encode_depths", "encode_payload", "decode", "encode path",
-              "encode path general", "decode path"}
-    assert set(smoke.time_paths(cpu, make_content(24, 16, 2))) == common
-    assert set(smoke.time_paths(cpu, make_content(24, 16, 2, kind="random"))) == \
-        common | {"encode_payload_u8", "decode_u8"}
+    common = {"encode_depths", "encode_payload", "decode", "encode_tiles", "decode_tiles",
+              "encode path", "encode path general", "decode path", "tiles encode path",
+              "tiles decode path"}
+    camera, random = make_content(24, 16, 2), make_content(24, 16, 2, kind="random")
+    assert set(smoke.time_paths(cpu, camera)) == common
+    assert set(smoke.time_paths(cpu, random)) == common | {"encode_payload_u8", "decode_u8"}
+    widths = smoke.time_widths(cpu, (24, 16), H=16, B=2)
+    assert {W: set(paths) for W, paths in widths.items()} == {24: {"encode", "decode"},
+                                                              16: {"encode", "decode"}}
+    for key in smoke.band.LAUNCHES:
+        ms, by, nbytes, ops = smoke.kernel_bound(key, random, smoke._n64_total(random, cpu))
+        assert ms > 0 and by in ("bytes", "operations") and nbytes > random.size and ops > 0
+
+
+def test_kernel_bound_counts_the_bytes():
+    """16x2048x2048 camera content: the bytes the kernels must move, as
+    PERF.md works them out (K1 69.2 MB, about 20.7 us at 3.35 TB/s)."""
+    smoke = _chip_smoke()
+    frames = np.zeros((16, 2048, 2048), np.uint8)
+    ms, by, nbytes, _ = smoke.kernel_bound("encode_depths", frames, 0)
+    assert (by, nbytes) == ("bytes", 16 * 2048 * 2048 + 2 * 16 * 65536)
+    assert abs(ms - nbytes / 3.35e9) < 1e-9
+    _, _, nbytes6, _ = smoke.kernel_bound("encode_tiles", frames, 1000)
+    assert nbytes6 == 66 * 16 * 65536 + 8 * 1000 + 4 * 16
