@@ -17,7 +17,9 @@ Phases, one line each, in order:
      untouched; K3, K5 and K7 must decode from payloads with garbage after
      each frame's stream; where every tile is depth 8 K4's payload must
      equal K2's; K6's depths, minima, n64 and stream must equal K1's and
-     K2's
+     K2's, from an aligned tiles_W and one 4 bytes off the 8-byte grid
+     (K6's word loads); then K6 50 times on 16 2048² camera and 16 random
+     frames, each result equal to the first and to the plain version's
   3  the main path: write_video then read_video of 64 2048² camera frames
      and 16 2048² random frames (every tile depth 8) in batches of 16,
      bit-exact, first records byte-equal to the numpy oracle, each camera
@@ -201,7 +203,13 @@ def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, 
         k6 = tile_layout.encode_tiles(tw, T, out=_sentinels(B, 16 * T, device))
         p6 = tile_layout.encode_tiles_plain(tw, T, out=_sentinels(B, 16 * T, device))
         _sync(device)
+        # and from a tiles_W 4 bytes off the 8-byte grid: K6's 4-byte loads
+        tw_off = torch.empty(tw.numel() + 1, dtype=torch.uint32, device=device)[1:].view(tw.shape)
+        tw_off.copy_(tw)
+        k6_off = tile_layout.encode_tiles(tw_off, T, out=_sentinels(B, 16 * T, device))
+        _sync(device)
         e6 = max(_max_err(a, b) for a, b in zip(k6, p6))
+        e6 = max(e6, *(_max_err(a, b) for a, b in zip(k6_off, p6)))
         d6, m6, pay6, n6 = k6
         _require(torch.equal(pay6.view(torch.int32), pk.view(torch.int32)),
                  f"{label}: encode_tiles' payload buffer is not encode_payload's")
@@ -225,6 +233,39 @@ def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, 
               f"all depth 8: {uniform}", flush=True)
     _require(max(errs.values()) <= TOLERANCE, f"kernels disagree with plain: {errs}")
     return errs
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.uint32:  # compare the bits
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def check_k6_repeats(device: torch.device, batches, repeats: int = 50) -> None:
+    """Phase 2, repeats: K6 ``repeats`` times on each (label, (B, H, W) u8
+    frames), each time into a fresh sentinel-filled buffer; every result
+    must equal the first and the first the plain version's.  Races between
+    blocks or within a block's shared memory show only now and then."""
+    for label, frames in batches:
+        B, H, W = frames.shape
+        h, w = tile_grid(W, H)
+        T = h * w
+        tw = tile_layout.image_to_tiles_w(torch.from_numpy(frames).to(device))
+        fill = _sentinels(B, 16 * T, device)
+        want = tile_layout.encode_tiles_plain(tw, T, out=fill.clone())
+        first = tile_layout.encode_tiles(tw, T, out=fill.clone())
+        _sync(device)
+        _require(all(_same(a, b) for a, b in zip(first, want)),
+                 f"{label}: encode_tiles differs from its plain version")
+        differ = 0
+        for _ in range(repeats - 1):
+            got = tile_layout.encode_tiles(tw, T, out=fill.clone())
+            differ += not all(_same(a, b) for a, b in zip(got, first))
+        _sync(device)
+        _require(differ == 0, f"{label}: {differ} of {repeats} encode_tiles runs differ "
+                              "from the first")
+        print(f"phase 2 K6 repeated {repeats} times on {label}: every result equal to the "
+              f"first and to the plain version's", flush=True)
 
 
 def expected_launches(frames: np.ndarray, batch: int) -> dict[str, int]:
@@ -506,8 +547,10 @@ def main() -> int:
     ]
     errs = check_kernels(device, geometries)
     print(f"phase 2 kernels equal to plain at every geometry: {errs}", flush=True)
-
     random16 = make_content(2048, 2048, 16, kind="random")
+    check_k6_repeats(device, [("camera 16x2048x2048", camera16),
+                              ("random 16x2048x2048", random16)])
+
     stream_frames = np.concatenate([make_content(2048, 2048, 64), random16])
     launches, (t_write, t_read) = check_main_path(device, stream_frames, batch=16)
     n = len(stream_frames)

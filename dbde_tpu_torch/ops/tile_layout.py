@@ -140,8 +140,7 @@ def encode_tiles(tiles_w: torch.Tensor, tiles: int, out: torch.Tensor | None = N
         raise ValueError(f"out must be (B, S) with S >= {tiles * MAX_WORDS_PER_TILE}, "
                          f"got {tuple(out.shape)}")
     check("out", out, torch.uint32, (B, out.shape[1]), dev)
-    depths = torch.empty((B, tp), dtype=torch.uint8, device=dev)
-    mins = torch.empty_like(depths)
+    depths, mins = torch.empty((2, B, tp), dtype=torch.uint8, device=dev)  # one allocation
     n64 = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
         # the chained scan's status word per (frame, block) and the block

@@ -171,12 +171,17 @@ def test_wrappers_reject_bad_tensors(cuda):
                            torch.zeros((1, 16), dtype=torch.uint32, device=cuda), 8, 8)
 
 
-@pytest.mark.parametrize("name", list(GEOMETRIES))
+# and K6's full 64 KB stage: every tile depth 8, 1023 real tiles in the last block
+TILES_GEOMETRIES = {**GEOMETRIES, "all depth 8, T mod 1024 = 1023":
+                    lambda: make_content(16376, 8, 2, kind="random")}
+
+
+@pytest.mark.parametrize("name", list(TILES_GEOMETRIES))
 def test_tiles_kernels_match_plain(cuda, name):
     """K6 and K7: equal to their plain versions, K6's buffer equal to K2's
     (stream and untouched sentinels), its depths and minima K1's, and K7
     decodes the shortest stride with garbage after each frame's stream."""
-    frames = GEOMETRIES[name]()
+    frames = TILES_GEOMETRIES[name]()
     B, H, W = frames.shape
     x = torch.from_numpy(np.ascontiguousarray(frames)).to(cuda)
     d, m = band.encode_depths(x)
@@ -205,6 +210,23 @@ def test_tiles_kernels_match_plain(cuda, name):
         torch.cuda.synchronize()
         np.testing.assert_array_equal(_u32(out), _u32(tile_layout.decode_tiles_plain(d6, m6, src)))
         np.testing.assert_array_equal(tile_layout.tiles_w_to_image(out, H, W).cpu().numpy(), frames)
+
+
+def test_encode_tiles_from_unaligned_tiles_w(cuda):
+    """A tiles_W 4 bytes off the 8-byte grid takes K6's word loads and gives
+    the same results as an aligned one."""
+    frames = make_adversarial(8200, 8, 2, seed=7)
+    tw = tile_layout.image_to_tiles_w(torch.from_numpy(frames).to(cuda))
+    T = 1025
+    off = torch.empty(tw.numel() + 1, dtype=torch.uint32, device=cuda)[1:].view(tw.shape)
+    off.copy_(tw)
+    assert off.data_ptr() % 8 == 4
+    fill = torch.from_numpy(np.full((2, 16 * T), SENTINEL, np.uint32)).to(cuda)
+    want = tile_layout.encode_tiles_plain(tw, T, out=fill.clone())
+    got = tile_layout.encode_tiles(off, T, out=fill.clone())
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
 def test_tiles_backend_launches_one_k6_and_one_k7(cuda):

@@ -1,8 +1,9 @@
 """The CUDA kernels' per-tile arithmetic, run on the CPU.
 
 ``dbde_tpu_torch/csrc/dbde_tile.cuh`` holds the depth/min, pack and unpack
-code that the kernels inline, the tiles backend's layout loads and stores
-and the status words of K6's look-back; it compiles under g++ as well.
+code that the kernels inline, the tiles backend's layout store,
+and K6's status words, warp-window look-back fold, staging slots and
+copy-out; it compiles under g++ as well.
 This test builds it into a small ctypes library and holds it against the
 port's plain PyTorch versions (themselves held against the JAX package in
 test_torch_ops.py and test_torch_tiles.py), tolerance 0; K6 and K7 run
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from dbde_tpu_torch.bench_core import make_adversarial, make_depth_runs
+from dbde_tpu_torch.bench_core import make_adversarial, make_content, make_depth_runs
 from dbde_tpu_torch.ops import (
     pack_words,
     pad_and_tile,
@@ -44,6 +45,31 @@ void tm_depth_min(const uint8_t* px, int n, uint8_t* depth, uint8_t* mn) {
     dbde_tile_depth_min(tile, &d, &m);
     depth[t] = (uint8_t)d;
     mn[t] = (uint8_t)m;
+  }
+}
+void tm_depth_min_u16x2(const uint8_t* px, int n, uint8_t* depth, uint8_t* mn) {
+  for (int t = 0; t < n; ++t) {
+    uint32_t tile[16], d, m;
+    memcpy(tile, px + 64 * t, 64);
+    dbde_tile_depth_min_u16x2(tile, &d, &m);
+    depth[t] = (uint8_t)d;
+    mn[t] = (uint8_t)m;
+  }
+}
+// K6's stage pack: tile t staged at stream word 16t (a stage of 1024 tiles),
+// read back in stream order
+void tm_stage(const uint8_t* px, int n, const uint8_t* depth, const uint8_t* mn,
+              uint32_t* words) {
+  std::vector<uint32_t> stage(DBDE_STAGE_WORDS);
+  for (int t0 = 0; t0 < n; t0 += 1024) {
+    for (uint32_t k = 0; k < DBDE_STAGE_WORDS; ++k) stage[dbde_stage_slot(k)] = words[16 * t0 + k];
+    for (int t = t0; t < n && t < t0 + 1024; ++t) {
+      uint32_t tile[16];
+      memcpy(tile, px + 64 * t, 64);
+      dbde_stage_tile(tile, mn[t], depth[t], stage.data(), 16u * (uint32_t)(t - t0));
+    }
+    for (int k = 0; k < 16 * 1024 && 16 * t0 + k < 16 * n; ++k)
+      words[16 * t0 + k] = stage[dbde_stage_slot((uint32_t)k)];
   }
 }
 void tm_pack(const uint8_t* px, int n, const uint8_t* depth, const uint8_t* mn,
@@ -85,50 +111,88 @@ void tm_bytes(const uint32_t* a, const uint32_t* b, int n, uint32_t* sub, uint32
 int tm_lookback_step(uint32_t flag, uint32_t value, uint32_t* base) {
   return dbde_lookback_step(dbde_status(flag, value), base);
 }
-// K6 on one frame of tiles_W, block by block (1024 tiles each), with the
-// kernel's tile functions and status words: every block's first half
-// (depths, minima, local scan, published aggregate) in the order `first`,
-// then every block's look-back, published prefix and stores in the order
-// `second`.  Returns n64, or -1 if a look-back met an unpublished block.
+// K6's warp-wide look-back over one window, lane by lane: the two ballots,
+// the fold and the sum of the lanes that count.  Returns the fold's outcome;
+// adds to *base unless it is 0.
+int tm_window_fold(const uint64_t* w, int n, uint32_t* base) {
+  uint32_t published = 0, prefix = 0;
+  for (int lane = 0; lane < 32; ++lane) {
+    const uint32_t flag = lane < n ? (uint32_t)(w[lane] >> 32) : 0u;
+    if (flag == DBDE_STATUS_AGGREGATE || flag == DBDE_STATUS_PREFIX) published |= 1u << lane;
+    if (flag == DBDE_STATUS_PREFIX) prefix |= 1u << lane;
+  }
+  int count = 0;
+  const int step = dbde_window_fold(published, prefix, n, &count);
+  if (step == 0) return 0;
+  for (int lane = 0; lane < count; ++lane) *base += (uint32_t)w[lane];
+  return step;
+}
+// The same window walked one status word at a time, as one thread would.
+int tm_window_serial(const uint64_t* w, int n, uint32_t* base) {
+  for (int k = 0; k < n; ++k) {
+    const int step = dbde_lookback_step(w[k], base);
+    if (step != 1) return step;
+  }
+  return 1;
+}
+void tm_copy_split(const uint32_t* dst, uint32_t total, uint32_t* split) {
+  dbde_copy_split(dst, total, split, split + 1, split + 2);
+}
+// Stage `total` stream words as K6 does and copy them out to dst with
+// `nthreads` threads, one after another.
+void tm_copy_out(const uint32_t* words, uint32_t total, uint32_t* dst, int nthreads) {
+  std::vector<uint32_t> stage(DBDE_STAGE_WORDS, 0xA5A5A5A5u);
+  for (uint32_t k = 0; k < total; ++k) stage[dbde_stage_slot(k)] = words[k];
+  for (int tid = 0; tid < nthreads; ++tid) dbde_copy_out(stage.data(), total, dst, tid, nthreads);
+}
+// K6 on one frame of tiles_W, block by block (1024 tiles, 512 threads of
+// two consecutive tiles each), with the kernel's functions and status
+// words: every block's first half (one read of each tile, depths, minima,
+// local scan, published aggregate, pack into its stage) in the order
+// `first`, then every block's warp-window look-back, published prefix and
+// copy-out in the order `second`.  Returns n64, or -1 if a look-back met an
+// unpublished block.
 int tm_encode_tiles(const uint32_t* tw, int tp, int T, const int* first, const int* second,
                     uint8_t* depth, uint8_t* mn, uint32_t* payload) {
   const int nb = tp / 1024;
   std::vector<uint64_t> status(nb, 0);
-  std::vector<uint32_t> off(tp), total(nb);
+  std::vector<uint32_t> total(nb);
+  std::vector<std::vector<uint32_t>> stage(nb);
   for (int q = 0; q < nb; ++q) {
     const int g = first[q];
-    uint32_t run = 0;
-    for (int t = g * 1024; t < (g + 1) * 1024; ++t) {
-      uint32_t d = 0, m = 0, tile[16];
-      if (t < T) {
-        dbde_tile_w_load(tw, tp, t, tile);
-        dbde_tile_depth_min(tile, &d, &m);
+    stage[g].assign(DBDE_STAGE_WORDS, 0xA5A5A5A5u);
+    uint32_t off = 0;
+    for (int tid = 0; tid < 512; ++tid) {
+      for (int i = 0; i < 2; ++i) {
+        const int t = g * 1024 + 2 * tid + i;
+        uint32_t d = 0, m = 0, tile[16];
+        for (int ww = 0; ww < 16; ++ww) tile[ww] = tw[(size_t)ww * tp + t];
+        if (t < T) dbde_tile_depth_min_u16x2(tile, &d, &m);
+        depth[t] = (uint8_t)d;
+        mn[t] = (uint8_t)m;
+        dbde_stage_tile(tile, m, d, stage[g].data(), off);
+        off += 2 * d;
       }
-      depth[t] = (uint8_t)d;
-      mn[t] = (uint8_t)m;
-      off[t] = run;
-      run += 2 * d;
     }
-    total[g] = run;
-    status[g] = dbde_status(g ? DBDE_STATUS_AGGREGATE : DBDE_STATUS_PREFIX, run);
+    total[g] = off;
+    status[g] = dbde_status(g ? DBDE_STATUS_AGGREGATE : DBDE_STATUS_PREFIX, off);
   }
   int n64 = -1;
   for (int q = 0; q < nb; ++q) {
     const int g = second[q];
     uint32_t base = 0;
-    for (int p = g - 1; p >= 0; --p) {
-      const int step = dbde_lookback_step(status[p], &base);
+    for (int hi = g - 1; g > 0; hi -= 32) {
+      const int n = hi + 1 < 32 ? hi + 1 : 32;
+      uint64_t w[32];
+      for (int lane = 0; lane < n; ++lane) w[lane] = status[hi - lane];
+      const int step = tm_window_fold(w, n, &base);
       if (step == 0) return -1;
       if (step == 2) break;
     }
     status[g] = dbde_status(DBDE_STATUS_PREFIX, base + total[g]);
     if (g == nb - 1) n64 = (int)((base + total[g]) / 2);
-    for (int t = g * 1024; t < (g + 1) * 1024; ++t) {
-      uint32_t tile[16];
-      if (!depth[t]) continue;
-      dbde_tile_w_load(tw, tp, t, tile);
-      dbde_pack_store(tile, mn[t], depth[t], payload + base + off[t]);
-    }
+    for (int tid = 0; tid < 512; ++tid)
+      dbde_copy_out(stage[g].data(), total[g], payload + base, tid, 512);
   }
   return n64;
 }
@@ -165,6 +229,8 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.tm_depth_min.argtypes = [P, I, P, P]
+    lib.tm_depth_min_u16x2.argtypes = [P, I, P, P]
+    lib.tm_stage.argtypes = [P, I, P, P, P]
     lib.tm_pack.argtypes = [P, I, P, P, P]
     lib.tm_unpack.argtypes = [P, I, P, P, P]
     lib.tm_pack8.argtypes = [P, I, P, P]
@@ -172,11 +238,16 @@ def lib(tmp_path_factory):
     lib.tm_bytes.argtypes = [P, P, I, P, P]
     lib.tm_lookback_step.argtypes = [ctypes.c_uint32, ctypes.c_uint32, P]
     lib.tm_lookback_step.restype = I
+    lib.tm_window_fold.argtypes = [P, I, P]
+    lib.tm_window_serial.argtypes = [P, I, P]
+    lib.tm_window_fold.restype = lib.tm_window_serial.restype = I
+    lib.tm_copy_split.argtypes = [P, ctypes.c_uint32, P]
+    lib.tm_copy_out.argtypes = [P, ctypes.c_uint32, P, I]
     lib.tm_encode_tiles.argtypes = [P, I, I, P, P, P, P, P]
     lib.tm_encode_tiles.restype = I
     lib.tm_decode_tiles.argtypes = [P, P, P, I, I, P]
-    for fn in (lib.tm_depth_min, lib.tm_pack, lib.tm_unpack, lib.tm_pack8, lib.tm_unpack8,
-               lib.tm_bytes, lib.tm_decode_tiles):
+    for fn in (lib.tm_depth_min, lib.tm_depth_min_u16x2, lib.tm_stage, lib.tm_pack, lib.tm_unpack, lib.tm_pack8, lib.tm_unpack8,
+               lib.tm_bytes, lib.tm_copy_split, lib.tm_copy_out, lib.tm_decode_tiles):
         fn.restype = None
     return lib
 
@@ -218,6 +289,10 @@ def test_tile_math_matches_plain(lib, name):
     np.testing.assert_array_equal(mn, pm.numpy())
     if name.startswith("depth"):
         assert (depth == int(name[5:])).all()
+    d16, m16 = np.empty(n, np.uint8), np.empty(n, np.uint8)  # K6's form
+    lib.tm_depth_min_u16x2(_ptr(tiles), n, _ptr(d16), _ptr(m16))
+    np.testing.assert_array_equal(d16, depth)
+    np.testing.assert_array_equal(m16, mn)
 
     words = np.full((n, 16), SENTINEL, np.uint32)
     lib.tm_pack(_ptr(tiles), n, _ptr(depth), _ptr(mn), _ptr(words))
@@ -227,6 +302,9 @@ def test_tile_math_matches_plain(lib, name):
     np.testing.assert_array_equal(words[live], plain[live])
     # the kernels' store contract: nothing past the tile's own 2*depth words
     assert (words[~live] == SENTINEL).all()
+    staged = np.full((n, 16), SENTINEL, np.uint32)  # K6's pack, into its stage
+    lib.tm_stage(_ptr(tiles), n, _ptr(depth), _ptr(mn), _ptr(staged))
+    np.testing.assert_array_equal(staged, words)
 
     back = np.empty_like(tiles)
     lib.tm_unpack(_ptr(words), n, _ptr(depth), _ptr(mn), _ptr(back))
@@ -299,11 +377,93 @@ def test_lookback_step(lib):
     assert step(3, 1, ctypes.byref(base)) == 0 and base.value == 42
 
 
+def _status(flags, values) -> np.ndarray:
+    return (np.asarray(flags, np.uint64) << np.uint64(32)) | np.asarray(values, np.uint64)
+
+
+def _windows(kind: str, rng):
+    """(32 status words, n) windows: lane k is the k-th predecessor back."""
+    for n in range(1, 33):
+        values = rng.integers(0, 1 << 20, 32)
+        if kind == "aggregate runs":  # no prefix: all aggregates, or one hole
+            yield _status(np.full(32, 1), values), n
+            for hole in range(n):
+                flags = np.ones(32, np.int64)
+                flags[hole] = rng.choice([0, 3])
+                yield _status(flags, values), n
+        elif kind == "prefix at every lane":  # aggregates before it, anything after
+            for p in range(n):
+                flags = rng.integers(0, 4, 32)
+                flags[:p], flags[p] = 1, 2
+                yield _status(flags, values), n
+        elif kind == "unpublished lanes":  # a prefix, holes before and after it
+            for p in range(n):
+                flags = rng.choice([0, 1, 1, 1, 2, 3], 32)
+                flags[p] = 2
+                yield _status(flags, values), n
+        else:  # "random": any flags, the lanes past n included
+            for _ in range(8):
+                yield _status(rng.choice([0, 1, 1, 2, 3], 32), values), n
+
+
+@pytest.mark.parametrize("kind", ["aggregate runs", "prefix at every lane", "unpublished lanes",
+                                  "random"])
+def test_window_fold_matches_serial_lookback(lib, kind):
+    """K6's warp-window fold has the serial look-back's outcome on every
+    window (wait, go on, done) and, unless it waits, its base: unpublished
+    lanes, runs of aggregates, a prefix at every lane, and windows shorter
+    than 32 as chunks 1..31 see them."""
+    rng = np.random.default_rng(len(kind))
+    outcomes = set()
+    for w, n in _windows(kind, rng):
+        w = np.ascontiguousarray(w)
+        fold, serial = ctypes.c_uint32(5), ctypes.c_uint32(5)
+        got = lib.tm_window_fold(_ptr(w), n, ctypes.byref(fold))
+        want = lib.tm_window_serial(_ptr(w), n, ctypes.byref(serial))
+        assert got == want, (kind, n, w >> np.uint64(32))
+        if got:
+            assert fold.value == serial.value
+        else:
+            assert fold.value == 5
+        outcomes.add(got)
+    assert outcomes == ({0, 1} if kind == "aggregate runs" else {0, 1, 2} if kind == "random"
+                        else {0, 2} if kind == "unpublished lanes" else {2})
+
+
+@pytest.mark.parametrize("mis", range(4))
+def test_copy_out_split(lib, mis):
+    """K6's copy-out to a destination ``mis`` words past a 16-byte boundary:
+    a head of at most 3 words up to the boundary, 16-byte groups, a tail of
+    at most 3; every word lands in [base, base + total) and no other word
+    of a sentinel-filled row changes, at totals 0-40 and 16384."""
+    row = np.full(16400, SENTINEL, np.uint32)
+    assert row.ctypes.data % 16 == 0
+    rng = np.random.default_rng(mis)
+    split = np.empty(3, np.uint32)
+    for total in [*range(41), 16384]:
+        words = rng.integers(0, 1 << 32, max(total, 1), dtype=np.uint32)
+        base = 4 + mis
+        dst = row.ctypes.data + 4 * base
+        lib.tm_copy_split(dst, total, _ptr(split))
+        head, body, tail = (int(v) for v in split)
+        assert head + 4 * body + tail == total and head <= 3 and tail <= 3
+        assert head == min((4 - mis) % 4, total)
+        if body:
+            assert (base + head) % 4 == 0
+        for nthreads in (512, 3):
+            row[:] = SENTINEL
+            lib.tm_copy_out(_ptr(words), total, dst, nthreads)
+            np.testing.assert_array_equal(row[base : base + total], words[:total])
+            assert (row[:base] == SENTINEL).all() and (row[base + total:] == SENTINEL).all()
+
+
 # one frame each: block seams crossed by runs of every depth (and a whole
-# block of flat tiles), and a last block holding a single real tile
+# block of flat tiles), a last block holding a single real tile, and a
+# full stage (every tile depth 8) with 1023 real tiles in the last block
 TILE_FRAMES = {
     "depth runs 16x40000": lambda: make_depth_runs(40000, 16, 1, seed=5),
     "T mod 1024 = 1, 8x8200": lambda: make_adversarial(8200, 8, 1, seed=6),
+    "all depth 8, T mod 1024 = 1023, 8x16376": lambda: make_content(16376, 8, 1, kind="random"),
 }
 
 
@@ -311,7 +471,10 @@ TILE_FRAMES = {
 @pytest.mark.parametrize("name", list(TILE_FRAMES))
 def test_tiles_kernels_block_by_block(lib, name, order):
     """K6 and K7 run block by block on the CPU, with the blocks in any
-    order: the same depths, minima, n64 and stream as the plain version,
+    order (K6's first half -- read, depths, scan, aggregate, pack to the
+    stage -- for every block, then its second half -- warp-window
+    look-back, prefix, copy-out): the same depths, minima, n64 and stream
+    as the plain version,
     nothing written past 2*n64, and a short-stride, garbage-padded payload
     decodes back to tiles_W."""
     frame = TILE_FRAMES[name]()
