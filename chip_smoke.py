@@ -32,14 +32,27 @@ Phases, one line each, in order:
      both backends against their plain versions at 16×2048² camera and
      random content, each kernel beside its bound; then the band and tiles
      paths side by side at 8×2048×W camera, W ∈ {320, 256, 192, 128}
+  5  the sharded path (dbde_tpu_torch.parallel) on meshes whose every slot
+     is the one card: a 2×2 mesh writes 32 camera, 16 random and 1 camera
+     2048² frames with write_video_sharded (batch 16; the last batch pads
+     the data axis) and walks them back with iter_video_sharded, the file
+     equal to write_video's byte for byte and each shard's launches as the
+     oracle's depths predict; a 1×4 mesh encodes 4 camera 1081×1920 frames
+     (34 tile rows a band) to the numpy oracle's bytes and decodes them;
+     sharded_roundtrip_step on the 2×2 mesh with the single-device n64;
+     graft_entry.dryrun_multichip(8) and graft_entry.entry(); the sharded
+     and single-device write and read times, and the shard encodes with and
+     without the per-shard depth-8 read-back
 
 Any failure raises, so the script exits non-zero without the final line.
-The line before the last lists the kernels as JSON; the last line is
+Phase 5's launch counts are a line of their own; then a line lists the
+kernels as JSON (launches from phases 3 and 3b); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import filecmp
 import json
 import os
 import subprocess
@@ -50,7 +63,7 @@ import time
 import numpy as np
 import torch
 
-from dbde_tpu_torch import read_video, ref_numpy, write_video
+from dbde_tpu_torch import graft_entry, read_video, ref_numpy, write_video
 from dbde_tpu_torch.bench_core import make_adversarial, make_content, make_depth_runs
 from dbde_tpu_torch.codec import (
     DbdeCodec,
@@ -65,6 +78,15 @@ from dbde_tpu_torch.native import binding as native_binding
 from dbde_tpu_torch.ops import band, tile_layout
 from dbde_tpu_torch.ops.build import build
 from dbde_tpu_torch.ops.payload import word_offsets
+from dbde_tpu_torch.parallel import (
+    assemble_payload_host,
+    decode_sharded,
+    encode_sharded,
+    iter_video_sharded,
+    make_mesh,
+    sharded_roundtrip_step,
+    write_video_sharded,
+)
 
 BAND_SOURCE = "dbde_tpu_torch/csrc/dbde_kernels.cu"
 TILES_SOURCE = "dbde_tpu_torch/csrc/dbde_tiles.cu"
@@ -346,6 +368,162 @@ def check_tiles_path(device: torch.device, batches) -> tuple[dict, float]:
     return launches, seconds
 
 
+def _depth_maps(frames: np.ndarray) -> np.ndarray:
+    """(N, h, w) tile depths of each frame, by the numpy oracle."""
+    N, H, W = frames.shape
+    h, w = tile_grid(W, H)
+    return np.stack([ref_numpy.tile_depths_mins(ref_numpy.tile_image(f))[0].reshape(h, w)
+                     for f in frames])
+
+
+def _shard_launches(n: dict, depths: np.ndarray, n_data: int, n_tiles: int,
+                    general: str, uniform: str) -> None:
+    """Count one launch of ``uniform`` for each shard of a (B, h, w) batch
+    of depth maps whose band is all depth 8, else one of ``general``."""
+    for rows in np.split(depths, n_data):
+        for part in np.split(rows, n_tiles, axis=1):
+            n[uniform if part.size and (part == 8).all() else general] += 1
+
+
+def expected_sharded_launches(frames: np.ndarray, batch: int, n_data: int,
+                              n_tiles: int) -> dict[str, int]:
+    """Kernel launches of write_video_sharded then iter_video_sharded of
+    ``frames`` in batches of ``batch`` (a multiple of n_data) on a GPU mesh:
+    every shard of every batch runs K1, then K4 if its band of its frames is
+    all depth 8 (by the numpy oracle's depth map), else K2; and decodes with
+    K5 if so, else K3.  The writer pads a short tail batch with repeats of
+    its last frame, the reader with records of depth 0."""
+    depths = _depth_maps(frames)
+    n = dict.fromkeys(band.LAUNCHES, 0)
+    for i in range(0, len(frames), batch):
+        d = depths[i : i + batch]
+        pad = -len(d) % n_data
+        n["encode_depths"] += n_data * n_tiles
+        _shard_launches(n, np.concatenate([d, np.repeat(d[-1:], pad, 0)]), n_data, n_tiles,
+                        "encode_payload", "encode_payload_u8")
+        _shard_launches(n, np.concatenate([d, np.zeros((pad, *d.shape[1:]), d.dtype)]),
+                        n_data, n_tiles, "decode", "decode_u8")
+    return n
+
+
+def _roundtrip_launches(frames: np.ndarray, n_data: int, n_tiles: int) -> dict[str, int]:
+    """Launches of one sharded encode and decode of ``frames`` on a GPU mesh."""
+    n = dict.fromkeys(band.LAUNCHES, 0)
+    depths = _depth_maps(frames)
+    n["encode_depths"] = n_data * n_tiles
+    _shard_launches(n, depths, n_data, n_tiles, "encode_payload", "encode_payload_u8")
+    _shard_launches(n, depths, n_data, n_tiles, "decode", "decode_u8")
+    return n
+
+
+def check_sharded_path(device: torch.device, frames: np.ndarray, batch: int,
+                       ragged: np.ndarray, dryrun_devices: int = 8):
+    """Phase 5: the sharded path on meshes whose every slot is ``device``.
+
+    (a) a 2x2 mesh writes ``frames`` with write_video_sharded in batches of
+    ``batch`` and walks the file back with iter_video_sharded: the file is
+    write_video's of the same frames byte for byte and the frames come back
+    exactly; (b) a 1x4 mesh encodes ``ragged`` (ceil(H/8) a multiple of 4)
+    with encode_sharded to ref_numpy.pack_image's depths, minima and
+    stream, frame by frame, and decode_sharded returns it; (c)
+    sharded_roundtrip_step of ``frames[:batch]`` on the 2x2 mesh returns it
+    with the single-device codec's n64; (d) graft_entry's dry run on
+    ``dryrun_devices`` slots and entry() on ``device``.  Each part's
+    launches must be those the numpy oracle's depths predict ((d): K1, K2
+    and K3 only).  Returns ({part: launches}, {leg: host seconds}): the
+    sharded write and read of (a) beside write_video and read_video of the
+    same frames, file IO included."""
+    on_gpu = device.type == "cuda"
+    none = dict.fromkeys(band.LAUNCHES, 0)
+    mesh22 = make_mesh(2, 2, devices=[device] * 4)
+    launches, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        single, sharded = os.path.join(tmp, "single.dbde"), os.path.join(tmp, "sharded.dbde")
+        t0 = time.perf_counter()
+        write_video(single, frames, frame_hz=1000.0, device=device, batch_size=batch)
+        seconds["write_video"] = time.perf_counter() - t0
+        band.reset_launches()
+        t0 = time.perf_counter()
+        write_video_sharded(sharded, frames, mesh22, frame_hz=1000.0, batch_size=batch)
+        t1 = time.perf_counter()
+        chunks = [chunk for _, chunk in iter_video_sharded(sharded, mesh22, batch_size=batch)]
+        t2 = time.perf_counter()
+        launches["a"] = dict(band.LAUNCHES)
+        seconds["write_video_sharded"], seconds["iter_video_sharded"] = t1 - t0, t2 - t1
+        _, _, single_out = read_video(single, device=device, batch_size=batch)
+        seconds["read_video"] = time.perf_counter() - t2
+        _require(filecmp.cmp(single, sharded, shallow=False),
+                 "write_video_sharded's file differs from write_video's")
+    _require(np.array_equal(np.concatenate(chunks), frames) and np.array_equal(single_out, frames),
+             "the sharded or single-device read did not return the written frames")
+    want = expected_sharded_launches(frames, batch, 2, 2) if on_gpu else none
+    _require(launches["a"] == want, f"sharded file launches {launches['a']}, expected {want}")
+
+    mesh14 = make_mesh(1, 4, devices=[device] * 4)
+    B, H, W = ragged.shape
+    band.reset_launches()
+    depth, mins, payload, totals, _, Hp = encode_sharded(ragged, mesh14)
+    out = decode_sharded(depth, mins, payload, mesh14, H=H, W=W, Hp=Hp)
+    launches["b"] = dict(band.LAUNCHES)
+    T = depth.shape[1]
+    for i, (frame, stream) in enumerate(zip(ragged, assemble_payload_host(payload, totals))):
+        rec = ref_numpy.pack_image(frame)
+        _require(depth[i].tobytes() == rec[4 : 4 + T] and mins[i].tobytes() == rec[8 + T : 8 + 2 * T]
+                 and stream.tobytes() == rec[12 + 2 * T:],
+                 f"1x4 mesh: frame {i} differs from ref_numpy.pack_image")
+    _require(np.array_equal(out, ragged), "1x4 mesh: decode_sharded did not return the frames")
+    want = _roundtrip_launches(ragged, 1, 4) if on_gpu else none
+    _require(launches["b"] == want, f"1x4 mesh launches {launches['b']}, expected {want}")
+
+    first = frames[:batch]
+    band.reset_launches()
+    out, n64 = sharded_roundtrip_step(first, mesh22)
+    launches["c"] = dict(band.LAUNCHES)
+    single_n64 = int(DbdeCodec(*first.shape[1:], device=device).encode(first).n64.sum())
+    _require(np.array_equal(out, first) and n64 == single_n64,
+             f"sharded_roundtrip_step: n64 {n64} against {single_n64}, or frames differ")
+    want = _roundtrip_launches(first, 2, 2) if on_gpu else none
+    _require(launches["c"] == want, f"roundtrip step launches {launches['c']}, expected {want}")
+
+    band.reset_launches()
+    graft_entry.dryrun_multichip(dryrun_devices, device=device.type)
+    fn, (example,) = graft_entry.entry(device)
+    got, n64 = fn(example)
+    launches["d"] = dict(band.LAUNCHES)
+    _require(np.array_equal(got.cpu().numpy(), example)
+             and n64.cpu().numpy().tolist() == _depth_maps(example).sum(axis=(1, 2)).tolist(),
+             "graft_entry.entry's step did not return the frames and their n64")
+    used = {k for k, v in launches["d"].items() if v}
+    want = {"encode_depths", "encode_payload", "decode"} if on_gpu else set()
+    _require(used == want, f"dry run and entry launched {launches['d']}")
+    return launches, seconds
+
+
+def time_shard_encodes(device: torch.device, frames: np.ndarray, iters: int = 20):
+    """Phase 5: ms per call (CUDA events, in turns) of the four shard
+    encodes of ``frames`` on a 2x2 mesh of ``device``: through
+    ``DbdeCodec.encode``, whose exact depth-8 choice reads a flag back from
+    the card once a shard, and as K1, scan and K2 on each shard with no
+    check.  Returns (checked ms, unchecked ms)."""
+    B, H, W = frames.shape
+    codec = DbdeCodec(H // 2, W, device=device)
+    shards = [torch.from_numpy(np.ascontiguousarray(
+        frames[d * B // 2:(d + 1) * B // 2, t * H // 2:(t + 1) * H // 2])).to(device)
+        for d in range(2) for t in range(2)]
+
+    def checked():
+        for x in shards:
+            codec.encode(x)
+
+    def unchecked():
+        for x in shards:
+            d, m = band.encode_depths(x)
+            offsets, _ = word_offsets(d)
+            band.encode_payload(x, d, m, offsets)
+
+    return _in_turns({"shard encodes": (checked, unchecked)}, iters)["shard encodes"]
+
+
 def _time_ms(fn, iters: int) -> float:
     for _ in range(3):
         fn()
@@ -588,6 +766,24 @@ def main() -> int:
                   f"({pix / t_ms / 1e6:.2f} Gpix/s), tiles/band {t_ms / b_ms:.3f} on {card}",
                   flush=True)
 
+    t5 = time.perf_counter()
+    sharded_frames = np.concatenate([stream_frames[:32], random16, stream_frames[:1]])
+    ragged = make_content(1920, 1081, 4)
+    shard_launches, secs = check_sharded_path(device, sharded_frames, 16, ragged)
+    n = len(sharded_frames)
+    print(f"phase 5 sharded: 2x2 mesh file of 32 camera + 16 random + 1 camera 2048x2048 "
+          f"frames equal to write_video's byte for byte and read back exactly; 1x4 mesh "
+          f"encode of 4x1081x1920 camera equal to ref_numpy.pack_image, decode exact; "
+          f"sharded_roundtrip_step exact with the single-device n64; "
+          f"graft_entry.dryrun_multichip(8) and entry() passed", flush=True)
+    legs = ", ".join(f"{leg} {s:.4f} s ({n / s:.1f} frames/s)" for leg, s in secs.items())
+    print(f"phase 5 host clock, {n} 2048x2048 frames, batch 16, file IO included: {legs} "
+          f"on {card}", flush=True)
+    checked_ms, unchecked_ms = time_shard_encodes(device, camera16)
+    print(f"phase 5 shard encodes, 2x2 mesh, 16x2048x2048 camera: {checked_ms:.4f} ms with the "
+          f"depth-8 check (one read-back a shard), {unchecked_ms:.4f} ms without "
+          f"(CUDA events) on {card}; phase 5 took {time.perf_counter() - t5:.1f} s", flush=True)
+
     _require("jax" not in sys.modules, "jax was imported")
     _require(not any(m == "dbde_tpu" or m.startswith("dbde_tpu.") for m in sys.modules),
              "the JAX package was imported")
@@ -600,6 +796,7 @@ def main() -> int:
                      "bound_ms": b_ms, "bound_by": by,
                      # no single PyTorch call computes a DBDE tile pack or unpack
                      "library_ms": None})
+    print("phase 5 launches: " + json.dumps(shard_launches))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -8,6 +8,10 @@ same bytes.  Layers:
     ``DbdeCodec(..., backend="band")`` (the default, kernels K1–K5) or
     ``backend="tiles"`` (the tile-layout kernels K6/K7), same bytes
   * :mod:`dbde_tpu_torch.stream` — streaming file reader/writer
+  * :mod:`dbde_tpu_torch.parallel` — the codec sharded over a mesh of
+    devices by one process, and the sharded file layer;
+    :mod:`dbde_tpu_torch.graft_entry` — the one-device compile check and
+    the multi-device dry run
   * :mod:`dbde_tpu_torch.format`, :mod:`~dbde_tpu_torch.ref_numpy`,
     :mod:`~dbde_tpu_torch.golden_vectors`, :mod:`~dbde_tpu_torch.bench_core`,
     :mod:`dbde_tpu_torch.native` — host modules: container serde, the

@@ -43,6 +43,21 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+def resolve_device(device) -> torch.device:
+    """A CPU or CUDA ``torch.device``, a CUDA one with its index; raises for
+    a CUDA device when none is visible, and for any other type."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the kernels need a GPU (device='cpu' "
+                               "runs the plain PyTorch versions)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
 def all_depth8(depths) -> bool:
     """True iff the batch has tiles and every one is depth 8, the case of
     the uniform kernels.  Host arrays are checked on the host; a device
@@ -110,15 +125,7 @@ class DbdeCodec:
         self.backend = backend
         self.height = int(height)
         self.width = int(width)
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("no CUDA device: the kernels need a GPU (device='cpu' "
-                                   "runs the plain PyTorch versions)")
-            if self.device.index is None:
-                self.device = torch.device("cuda", torch.cuda.current_device())
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = resolve_device(device)
         h, w = tile_grid(self.width, self.height)
         self.tiles = h * w
         self.max_payload_words = self.tiles * MAX_WORDS_PER_TILE

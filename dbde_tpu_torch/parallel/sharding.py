@@ -1,0 +1,478 @@
+"""Sharding of the DBDE codec over a mesh of devices, driven by one process.
+
+Counterpart of :mod:`dbde_tpu.parallel.sharding`, with the same public
+names and the same host arrays.  Two mesh axes:
+
+  * ``"data"`` splits a batch's frames (each shard encodes and decodes its
+    own frames; nothing crosses devices);
+  * ``"tiles"`` splits each frame into horizontal bands of whole 8-pixel
+    tile rows.  The only coupling between shards in the whole format is
+    the stream offset of each band: the exclusive prefix of the per-shard
+    word totals over the ``tiles`` axis.
+
+The JAX mesh is single-controller: one process drives every device
+through ``shard_map``.  The port keeps that model.  A :class:`Mesh` is an
+``(n_data, n_tiles)`` grid of ``torch.device``; this process runs each
+shard's :class:`~dbde_tpu_torch.codec.DbdeCodec` on its device in turn
+(launches are asynchronous, so shards on distinct cards overlap), with no
+process group and no collective.  The word-total prefix is a
+``torch.stack`` of a data row's totals on the row's first device and one
+``cumsum`` there, the only step that moves data between devices.  A device
+may appear more than once in a mesh: its shards then run one after
+another on its current stream.
+
+Each shard runs the band kernels through the codec: K1, then K4 if its
+band is all depth 8, else the scan and K2; its decode is K3, or K5 where
+the shard's depths are all 8 (:func:`~dbde_tpu_torch.codec.all_depth8`,
+exact, per shard).  On CPU devices the plain versions run instead.  The
+tiles backend (K6/K7) has no sharded path, as in the JAX package.
+
+Per-shard payload segments keep a worst-case slot of 16 words a tile; the
+host assembles a file's ragged streams from (segment, total) pairs and
+splits them again for a mesh decode (:func:`assemble_payload_padded`,
+:func:`split_payload_host`).
+"""
+
+from __future__ import annotations
+
+import collections
+
+import numpy as np
+import torch
+
+from ..codec import DbdeCodec, _host, record_iovecs, resolve_device
+from ..format import VideoHeader, tile_grid
+from ..ops.bitpack import MAX_WORDS_PER_TILE
+from ..stream import DbdeReader, _writev_all
+
+
+class Mesh:
+    """A ("data", "tiles") grid of torch devices: ``devices`` is an
+    ``(n_data, n_tiles)`` object array, ``shape`` the axis sizes by name."""
+
+    def __init__(self, devices: np.ndarray):
+        self.devices = devices
+
+    @property
+    def shape(self) -> dict[str, int]:
+        n_data, n_tiles = self.devices.shape
+        return {"data": n_data, "tiles": n_tiles}
+
+
+def make_mesh(n_data: int | None = None, n_tiles: int = 1, devices=None) -> Mesh:
+    """Build a ("data", "tiles") mesh from ``devices`` (default: every
+    visible CUDA device; with none visible this raises, there is no CPU
+    fallback).  A device may be listed more than once."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh found no CUDA device; pass devices="
+                               "[torch.device('cpu')] * n for a mesh of plain versions")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [resolve_device(d) for d in devices]
+    if n_data is None:
+        n_data = len(devices) // n_tiles
+    if n_data < 1 or n_tiles < 1 or n_data * n_tiles > len(devices):
+        raise ValueError(f"mesh {n_data}x{n_tiles} needs 1 to {len(devices)} devices")
+    grid = np.empty((n_data, n_tiles), dtype=object)
+    for i, dev in enumerate(devices[: n_data * n_tiles]):
+        grid.flat[i] = dev
+    return Mesh(grid)
+
+
+def _band_geometry(W: int, H: int, n_tiles: int) -> tuple[int, int, int]:
+    """(h, w, h_loc): the frame's tile grid and the tile rows of each band."""
+    h, w = tile_grid(W, H)
+    if h % n_tiles != 0:
+        raise ValueError(
+            f"tile rows ({h}) must divide evenly into {n_tiles} bands for "
+            "bit-exact sharded encode; pick n_tiles dividing ceil(H/8)"
+        )
+    return h, w, h // n_tiles
+
+
+def _check_backend(backend: str) -> None:
+    """Raise unless ``backend`` is "auto" or "band": the band kernels per
+    shard, the port's one sharded path."""
+    if backend in ("auto", "band"):
+        return
+    if backend == "xla":
+        raise ValueError("the port has no 'xla' shard body: its plain versions run on a "
+                         "mesh of CPU devices (make_mesh(devices=[torch.device('cpu')] * n))")
+    raise ValueError(f"unknown sharded backend {backend!r}")
+
+
+def _local_batch(B: int, n_data: int) -> int:
+    if B % n_data:
+        raise ValueError(f"a batch of {B} frames does not split over {n_data} data shards")
+    return B // n_data
+
+
+def segment_slot_words(W: int, H: int, n_tiles: int, backend: str = "auto") -> int:
+    """Per-shard payload segment slot size in u32 words: the stride that
+    :func:`encode_sharded` and :func:`split_payload_host` emit, 16 words a
+    tile.  :func:`decode_sharded` takes any stride from its array."""
+    _check_backend(backend)
+    _, w, h_loc = _band_geometry(W, H, n_tiles)
+    return MAX_WORDS_PER_TILE * h_loc * w
+
+
+# ---------------------------------------------------------------------------
+# per-shard encode and the one cross-device step
+# ---------------------------------------------------------------------------
+
+
+def _pad_rows(images: np.ndarray, rows: int) -> np.ndarray:
+    """Edge-pad (B, H, W) frames to ``rows`` rows: repeat the last row."""
+    H = images.shape[1]
+    if rows == H:
+        return images
+    return np.concatenate([images, np.repeat(images[:, -1:], rows - H, axis=1)], axis=1)
+
+
+def _encode_shards(images: np.ndarray, mesh: Mesh):
+    """Encode every shard's band on its device → rows of (codec, EncodedBatch).
+
+    H is edge-padded first to whole tile rows (the format's rule: repeat
+    the last row), so shard (d, t) holds frames ``[d*B_loc, (d+1)*B_loc)``
+    and pixel rows ``[t*8*h_loc, (t+1)*8*h_loc)`` of the padded frames."""
+    B, H, W = images.shape
+    n_data, n_tiles = mesh.devices.shape
+    h, _, h_loc = _band_geometry(W, H, n_tiles)
+    B_loc = _local_batch(B, n_data)
+    images = _pad_rows(images, 8 * h)
+    L = 8 * h_loc
+    grid = []
+    for d in range(n_data):
+        row = []
+        for t in range(n_tiles):
+            codec = DbdeCodec(L, W, device=mesh.devices[d, t])
+            row.append((codec, codec.encode(images[d * B_loc:(d + 1) * B_loc,
+                                                   t * L:(t + 1) * L])))
+        grid.append(row)
+    return grid
+
+
+def _totals_bases(row) -> tuple[torch.Tensor, torch.Tensor]:
+    """A data row's (totals, bases), each (n_tiles, B_loc) i32, on the row's
+    first device: the u32 word count of every shard's segment and its
+    exclusive prefix over the ``tiles`` axis (the JAX package's
+    ``all_gather`` of one scalar per shard)."""
+    first = row[0][1].n64.device
+    totals = torch.stack([2 * enc.n64.to(first) for _, enc in row])
+    return totals, torch.cumsum(totals, 0, dtype=torch.int32) - totals
+
+
+def encode_sharded(images, mesh: Mesh, backend: str = "auto"):
+    """(B, H, W) u8 frames → sharded encoded arrays, on the host.
+
+    ``B`` is split over ``data``; tile rows are split into ``tiles`` bands.
+    Requires ``ceil(H/8) % n_tiles == 0`` (equal bands of whole tile rows),
+    so that band-major tile order is the frame's row-major tile order and
+    the bytes are the single-device encoding's.
+
+    Returns (depths (B,T) u8, mins (B,T) u8, payload (B, n_tiles*S_local)
+    u32 per-shard segments, totals (n_tiles, B) i32 segment word counts,
+    bases (n_tiles, B) i32 global word offsets, Hp).  Each shard's segment
+    is copied from its device only up to that shard's largest total; slot
+    words past a frame's own total are unspecified.
+    """
+    _check_backend(backend)
+    images = np.asarray(images, dtype=np.uint8)
+    B, H, W = images.shape
+    n_data, n_tiles = mesh.devices.shape
+    grid = _encode_shards(images, mesh)
+    rows = [_totals_bases(row) for row in grid]
+    totals = np.concatenate([_host(t) for t, _ in rows], axis=1)
+    bases = np.concatenate([_host(b) for _, b in rows], axis=1)
+    depths = np.concatenate([np.concatenate([_host(e.depths) for _, e in row], axis=1)
+                             for row in grid])
+    mins = np.concatenate([np.concatenate([_host(e.mins) for _, e in row], axis=1)
+                           for row in grid])
+    S = segment_slot_words(W, H, n_tiles)
+    B_loc = B // n_data
+    payload = np.empty((B, n_tiles, S), np.uint32)
+    for d, row in enumerate(grid):
+        frames = slice(d * B_loc, (d + 1) * B_loc)
+        for t, (_, enc) in enumerate(row):
+            live = int(totals[t, frames].max(initial=0))
+            payload[frames, t, :live] = enc.payload_host(live)
+    return depths, mins, payload.reshape(B, n_tiles * S), totals, bases, 8 * tile_grid(W, H)[0]
+
+
+# ---------------------------------------------------------------------------
+# per-shard decode
+# ---------------------------------------------------------------------------
+
+
+def decode_sharded_dispatch(depths, mins, segments, mesh: Mesh, H: int, W: int,
+                            Hp: int, backend: str = "auto", uniform8: bool = False):
+    """Launch every shard's decode → an opaque pending value for
+    :func:`decode_sharded_materialize`.
+
+    ``segments`` is (B, n_tiles*S) u32 at any per-shard stride S ≥ each
+    shard's live words (the stride is ``segments.shape[1] // n_tiles``), so
+    segments made at another stride, such as the JAX package's, decode too.
+    Each shard gets its host depths, so its K3/K5 choice waits for nothing.
+    ``Hp`` and ``uniform8`` are accepted for the JAX package's contract and
+    change nothing: the band geometry follows from H, and the uniform
+    choice is exact per shard.
+    """
+    _check_backend(backend)
+    n_data, n_tiles = mesh.devices.shape
+    _, w, h_loc = _band_geometry(W, H, n_tiles)
+    depths, mins, segments = _host(depths), _host(mins), _host(segments)
+    B_loc = _local_batch(depths.shape[0], n_data)
+    if segments.ndim != 2 or segments.shape[1] % n_tiles:
+        raise ValueError(f"segments must be (B, n_tiles*S), got {segments.shape} "
+                         f"for {n_tiles} bands")
+    S = segments.shape[1] // n_tiles
+    T_loc = h_loc * w
+    pending = []
+    for d in range(n_data):
+        frames = slice(d * B_loc, (d + 1) * B_loc)
+        row = []
+        for t in range(n_tiles):
+            tiles = slice(t * T_loc, (t + 1) * T_loc)
+            codec = DbdeCodec(8 * h_loc, W, device=mesh.devices[d, t])
+            row.append(codec.decode_dispatch(depths[frames, tiles], mins[frames, tiles],
+                                             segments[frames, t * S:(t + 1) * S]))
+        pending.append(row)
+    return pending
+
+
+def decode_sharded_materialize(pending, H: int, W: int) -> np.ndarray:
+    """Wait for a :func:`decode_sharded_dispatch` value → (B, H, W) u8:
+    every shard copied to the host into its place, cropped to the frame."""
+    n_data, n_tiles = len(pending), len(pending[0])
+    B_loc, L, Wd = pending[0][0].shape
+    out = np.empty((n_data * B_loc, n_tiles * L, Wd), np.uint8)
+    for d, row in enumerate(pending):
+        for t, band in enumerate(row):
+            out[d * B_loc:(d + 1) * B_loc, t * L:(t + 1) * L] = band.cpu().numpy()
+    return out[:, :H, :W]
+
+
+def decode_sharded(depths, mins, segments, mesh: Mesh, H: int, W: int, Hp: int,
+                   backend: str = "auto", uniform8: bool = False) -> np.ndarray:
+    """Inverse of :func:`encode_sharded`; → (B, H, W) u8 numpy."""
+    return decode_sharded_materialize(
+        decode_sharded_dispatch(depths, mins, segments, mesh, H, W, Hp, backend, uniform8),
+        H, W)
+
+
+def sharded_roundtrip_step(images, mesh: Mesh, backend: str = "auto"):
+    """One full sharded encode → decode step: each shard decodes its own
+    segment on its device, with no host round trip of the payload.  Any H
+    works: the frames are edge-padded to whole bands of tile rows first,
+    as the JAX package's step pads them.  Returns ((B, H, W) u8 numpy,
+    global n64 of the padded frames, summed over every shard)."""
+    _check_backend(backend)
+    images = np.asarray(images, dtype=np.uint8)
+    B, H, W = images.shape
+    unit = 8 * mesh.shape["tiles"]
+    grid = _encode_shards(_pad_rows(images, -(-H // unit) * unit), mesh)
+    pending = [[codec.decode_dispatch(enc.depths, enc.mins, enc.payload) for codec, enc in row]
+               for row in grid]
+    first = mesh.devices[0, 0]
+    n64 = torch.stack([enc.n64.sum(dtype=torch.int64).to(first)
+                       for row in grid for _, enc in row]).sum()
+    return decode_sharded_materialize(pending, H, W), int(n64)
+
+
+# ---------------------------------------------------------------------------
+# host glue: sharded segments ↔ the file's flat per-frame streams
+# ---------------------------------------------------------------------------
+
+
+def assemble_payload_host(segments, totals) -> list[np.ndarray]:
+    """Per-frame flat u32 payloads from sharded segments (host ragged concat).
+
+    segments: (B, n_tiles*S_local) u32; totals: (n_tiles, B) i32.
+    """
+    pay, n64 = assemble_payload_padded(segments, totals)
+    return [pay[b, : 2 * int(n64[b])].copy() for b in range(pay.shape[0])]
+
+
+def assemble_payload_padded(segments, totals, out=None):
+    """Sharded segments → one padded (B, mx) u32 payload matrix + n64 (B,).
+
+    The writer's host leg: each frame's flat stream is its shards' live
+    prefixes back to back, written into an uninitialised row-padded matrix
+    (consumers such as :func:`~dbde_tpu_torch.codec.record_iovecs` read
+    only ``2*n64`` words a row), one copy per (frame, shard).
+
+    ``out``: an optional reusable (≥B, ≥mx) u32 buffer; rows may be wider
+    than mx.  Returns (matrix (B, ≥mx) u32, n64 (B,) i64); allocates when
+    ``out`` is absent or too small.
+    """
+    totals = np.asarray(totals)
+    n_tiles = totals.shape[0]
+    segments = np.asarray(segments)
+    B = segments.shape[0]
+    segments = segments.reshape(B, n_tiles, -1)
+    counts = totals.T.astype(np.int64)  # (B, n_tiles)
+    bases = np.cumsum(counts, axis=1) - counts
+    words = counts.sum(1)
+    mx = int(words.max()) if B else 0
+    if out is not None and out.shape[0] >= B and out.shape[1] >= mx:
+        pay = out[:B]
+    else:
+        pay = np.empty((B, mx), np.uint32)
+    for b in range(B):
+        row = pay[b]
+        for s in range(n_tiles):
+            c = counts[b, s]
+            row[bases[b, s] : bases[b, s] + c] = segments[b, s, :c]
+    return pay, words // 2
+
+
+def split_payload_host(payload, depths, H: int, W: int, n_tiles: int,
+                       backend: str = "auto", out=None) -> np.ndarray:
+    """File-flat per-frame payloads → per-shard worst-case segments.
+
+    The inverse of :func:`assemble_payload_host`, from per-band depth sums
+    alone: shard ``s`` of frame ``b`` owns tile rows ``[s*h_loc,
+    (s+1)*h_loc)``, so its segment is the ``2*Σ depths``-word slice of the
+    flat stream at the exclusive prefix of the earlier shards' counts.
+
+    payload: (B, S) u32 flat streams (any S ≥ each frame's 2*n64);
+    depths: (B, T) u8.  Returns (B, n_tiles*S_local) u32 segments for
+    :func:`decode_sharded`.  Slot words past each shard's live count are
+    uninitialised: the decode reads only each tile's ``2*depth`` words, so
+    the output never depends on them (``tests/test_torch_parallel.py``).
+
+    ``out``: an optional reusable (B, n_tiles*S_local) u32 buffer
+    (:func:`iter_video_sharded` pools them).
+    """
+    depths = np.asarray(depths)
+    payload = np.asarray(payload)
+    B, T = depths.shape
+    _, w, h_loc = _band_geometry(W, H, n_tiles)
+    counts = 2 * depths.reshape(B, n_tiles, h_loc * w).astype(np.int64).sum(-1)
+    bases = np.cumsum(counts, axis=1) - counts
+    S_local = segment_slot_words(W, H, n_tiles, backend)
+    if out is None or out.shape != (B, n_tiles * S_local):
+        out = np.empty((B, n_tiles * S_local), np.uint32)
+    segs = out.reshape(B, n_tiles, S_local)
+    for b in range(B):
+        src = payload[b]
+        for s in range(n_tiles):
+            c = counts[b, s]
+            segs[b, s, :c] = src[bases[b, s] : bases[b, s] + c]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharded file layer: the stream walker and writer coupled to the mesh codec
+# ---------------------------------------------------------------------------
+
+
+def write_video_sharded(path, frames, mesh: Mesh, frame_hz: float = 1.0,
+                        backend: str = "auto", batch_size: int = 16,
+                        hz_as_integer: bool = False) -> None:
+    """Encode a (N, H, W) u8 stack to a ``.dbde`` file on a device mesh.
+
+    Each batch is split over the mesh (frames over ``data``, tile-row bands
+    over ``tiles``); the host assembles the ragged segments
+    (:func:`assemble_payload_padded`) and writes records byte-identical to
+    the single-device writer's.  A tail batch that does not fill the data
+    axis is padded with repeats of its last frame, which are dropped at
+    the file.
+    """
+    frames = np.asarray(frames, dtype=np.uint8)
+    N, H, W = frames.shape
+    n_data = mesh.shape["data"]
+    step = max(batch_size - batch_size % n_data, n_data)
+    pay_buf = None  # reused across batches: os.writev is synchronous, so
+    # the buffer is free the moment _writev_all returns
+    with open(path, "wb") as f:
+        f.write(VideoHeader(height=H, width=W, frame_hz=frame_hz).pack(hz_as_integer))
+        f.flush()  # the records below bypass the buffer via writev on the fd
+        for i in range(0, N, step):
+            batch = frames[i : i + step]
+            n = batch.shape[0]
+            if n % n_data:
+                pad = n_data - n % n_data
+                batch = np.concatenate([batch, np.repeat(batch[-1:], pad, 0)])
+            depth, mn, payload, totals, _, _ = encode_sharded(batch, mesh, backend=backend)
+            pay, n64 = assemble_payload_padded(payload, totals, out=pay_buf)
+            if pay_buf is None or pay.shape[1] > pay_buf.shape[1]:
+                pay_buf = pay if pay.base is None else None
+            iov = record_iovecs(depth[:n], mn[:n], pay[:n], n64[:n], indices=range(i, i + n))
+            _writev_all(f.fileno(), iov)
+
+
+def iter_video_sharded(path, mesh: Mesh, backend: str = "auto",
+                       batch_size: int = 16, hz_as_integer: bool = False,
+                       pipeline: int = 2, uniform8: bool = False):
+    """Bounded-memory sharded file walker: yield (headers, (n, H, W) u8)
+    batches of a ``.dbde`` file decoded across a device mesh.
+
+    The stream reader parses the records on the host
+    (:meth:`~dbde_tpu_torch.stream.DbdeReader.iter_raw`; its own codec
+    stays idle), each batch's flat payloads are split into per-shard
+    segments (:func:`split_payload_host`), and every shard's decode is
+    launched before the previous batch is waited for: up to ``pipeline``
+    batches are in flight, so the next batch's parse and split overlap
+    the device work.  Memory is O(pipeline · batch).
+
+    A tail batch that does not fill the data axis is padded with zero
+    records (depth 0 everywhere) and cropped after the decode.  A segment
+    buffer returns to its pool only after its batch materialized, which
+    implies its host→device copies are done.
+    """
+    n_data = mesh.shape["data"]
+    n_tiles = mesh.shape["tiles"]
+    with DbdeReader(path, batch_size=max(batch_size, n_data), device=mesh.devices[0, 0],
+                    hz_as_integer=hz_as_integer) as rd:
+        H, W = rd.height, rd.width
+        Hp = 8 * tile_grid(W, H)[0]
+        raw = rd.iter_raw()
+        pending = collections.deque()
+        seg_pool: dict = {}  # batch rows → free segment buffers
+
+        def dispatch() -> bool:
+            item = next(raw, None)
+            if item is None:
+                return False
+            headers, (depths, mins, payload, _) = item
+            n = len(headers)
+            if n % n_data:
+                pad = n_data - n % n_data
+                z8 = np.zeros((pad, depths.shape[1]), np.uint8)
+                depths = np.concatenate([depths, z8])
+                mins = np.concatenate([mins, z8])
+                payload = np.concatenate([payload, np.zeros((pad, payload.shape[1]), np.uint32)])
+            free = seg_pool.setdefault(depths.shape[0], [])
+            segments = split_payload_host(payload, depths, H, W, n_tiles, backend,
+                                          out=free.pop() if free else None)
+            out = decode_sharded_dispatch(depths, mins, segments, mesh, H=H, W=W, Hp=Hp,
+                                          backend=backend, uniform8=uniform8)
+            pending.append((headers, out, n, segments))
+            return True
+
+        while len(pending) < pipeline and dispatch():
+            pass
+        while pending:
+            dispatch()  # parse + split + launch the next batch while this one runs
+            headers, out, n, segments = pending.popleft()
+            frames = decode_sharded_materialize(out, H, W)[:n]
+            seg_pool[segments.shape[0]].append(segments)  # decoded ⇒ copies done
+            yield headers, frames
+
+
+def read_video_sharded(path, mesh: Mesh, backend: str = "auto",
+                       batch_size: int = 16, hz_as_integer: bool = False):
+    """Decode a whole ``.dbde`` file on a device mesh →
+    (VideoHeader, [FrameHeader], (N, H, W) u8); the whole-video wrapper of
+    :func:`iter_video_sharded`."""
+    headers_all, chunks = [], []
+    for headers, frames in iter_video_sharded(path, mesh, backend=backend,
+                                              batch_size=batch_size,
+                                              hz_as_integer=hz_as_integer):
+        headers_all.extend(headers)
+        chunks.append(frames)
+    with DbdeReader(path, device=mesh.devices[0, 0], hz_as_integer=hz_as_integer) as rd:
+        header, H, W = rd.header, rd.height, rd.width
+    frames = np.concatenate(chunks) if chunks else np.empty((0, H, W), np.uint8)
+    return header, headers_all, frames

@@ -247,3 +247,38 @@ def test_tiles_wrappers_reject_bad_tensors(cuda):
     d = torch.zeros((1, 1024), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         tile_layout.decode_tiles(d, d, torch.zeros((1, 16), dtype=torch.int32, device=cuda))
+
+
+def test_sharded_shards_run_their_kernels(cuda):
+    """A 2x2 mesh of one card: the random top band's shards take K4/K5 and
+    the low-depth bottom band's K2/K3; the arrays equal a CPU mesh's; and
+    K3 and K5 decode segments whose slots hold 0xDEADBEEF past each
+    shard's live words."""
+    from dbde_tpu_torch.parallel import decode_sharded, encode_sharded, make_mesh
+
+    rng = np.random.default_rng(7)
+    low = (rng.integers(0, 32, size=(4, 16, 40)) + 50).astype(np.uint8)
+    frames = np.concatenate([make_content(40, 16, 4, kind="random"), low], axis=1)
+    mesh = make_mesh(2, 2, devices=[cuda] * 4)
+    band.reset_launches()
+    got = encode_sharded(frames, mesh)
+    assert {k: v for k, v in band.LAUNCHES.items() if v} == {
+        "encode_depths": 4, "encode_payload": 2, "encode_payload_u8": 2}
+    want = encode_sharded(frames, make_mesh(2, 2, devices=[torch.device("cpu")] * 4))
+    depth, mins, payload, totals, _, Hp = got
+    for g, w in zip(got[:5], want[:5]):
+        if g is payload:  # slot words past the live ones are unspecified
+            continue
+        np.testing.assert_array_equal(g, w)
+    S = payload.shape[1] // 2
+    segs = np.full((4, 2, S), SENTINEL, np.uint32)
+    for b in range(4):
+        for s in range(2):
+            segs[b, s, : totals[s, b]] = payload[b, s * S : s * S + totals[s, b]]
+            assert totals[s, b] == want[3][s, b]
+            np.testing.assert_array_equal(segs[b, s, : totals[s, b]],
+                                          want[2][b, s * S : s * S + totals[s, b]])
+    band.reset_launches()
+    out = decode_sharded(depth, mins, segs.reshape(4, -1), mesh, H=32, W=40, Hp=Hp)
+    assert {k: v for k, v in band.LAUNCHES.items() if v} == {"decode": 2, "decode_u8": 2}
+    np.testing.assert_array_equal(out, frames)

@@ -1,0 +1,251 @@
+"""The port's sharded path on meshes of CPU devices (the plain versions run
+in every shard), against the numpy oracle, the port's single-device
+writer and the JAX package's sharded arrays; tolerance 0 throughout (the
+codec is integer-valued).  The cases mirror tests/test_parallel.py."""
+
+import struct
+
+import numpy as np
+import pytest
+import torch
+
+from dbde_tpu import ref_numpy as ref
+from dbde_tpu.parallel import encode_sharded as jax_encode_sharded
+from dbde_tpu.parallel import make_mesh as jax_make_mesh
+from dbde_tpu_torch import write_video
+from dbde_tpu_torch.bench_core import make_content
+from dbde_tpu_torch.graft_entry import dryrun_multichip
+from dbde_tpu_torch.ops import band
+from dbde_tpu_torch.parallel import (
+    assemble_payload_host,
+    assemble_payload_padded,
+    decode_sharded,
+    encode_sharded,
+    iter_video_sharded,
+    make_mesh,
+    read_video_sharded,
+    segment_slot_words,
+    sharded_roundtrip_step,
+    split_payload_host,
+    write_video_sharded,
+)
+
+CPU8 = [torch.device("cpu")] * 8
+
+
+def _mesh(n_data, n_tiles):
+    return make_mesh(n_data=n_data, n_tiles=n_tiles, devices=CPU8)
+
+
+def _frames(B=4, H=48, W=40, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 32, size=(B, H, W)) + 50).astype(np.uint8)
+
+
+def _oracle_n64(frame) -> int:
+    T = int(np.prod([-(-n // 8) for n in frame.shape]))
+    return struct.unpack_from("<i", ref.pack_image(frame), 8 + 2 * T)[0]
+
+
+def test_mesh_construction():
+    mesh = _mesh(4, 2)
+    assert mesh.shape == {"data": 4, "tiles": 2}
+    assert mesh.devices.shape == (4, 2)
+    assert all(d == torch.device("cpu") for d in mesh.devices.flat)  # one device, 8 slots
+    mesh = make_mesh(n_tiles=2, devices=CPU8)
+    assert mesh.shape["data"] == 4 and mesh.shape["tiles"] == 2
+    with pytest.raises(ValueError):
+        make_mesh(n_data=5, n_tiles=2, devices=CPU8)
+
+
+def test_make_mesh_needs_cuda_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible; this checks the error without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(devices=["cuda"])
+
+
+@pytest.mark.parametrize("n_data,n_tiles", [(2, 1), (1, 2), (4, 2), (2, 3)])
+def test_sharded_encode_matches_oracle(n_data, n_tiles):
+    frames = _frames(B=n_data * 2, H=8 * 6, W=21)  # h=6 divides 1, 2, 3
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, _mesh(n_data, n_tiles))
+    assert Hp == 48 and payload.shape == (frames.shape[0], n_tiles * segment_slot_words(21, 48, n_tiles))
+    payloads = assemble_payload_host(payload, totals)
+    T = 6 * 3
+    for b in range(frames.shape[0]):
+        expected = ref.pack_image(frames[b])
+        np.testing.assert_array_equal(depth[b], np.frombuffer(expected, np.uint8, T, 4))
+        np.testing.assert_array_equal(mn[b], np.frombuffer(expected, np.uint8, T, 8 + T))
+        np.testing.assert_array_equal(payloads[b], np.frombuffer(expected, np.uint32, offset=12 + 2 * T))
+
+
+def test_sharded_encode_rejects_uneven_bands_and_other_backends():
+    mesh = _mesh(2, 4)
+    with pytest.raises(ValueError, match="divide evenly"):
+        encode_sharded(_frames(B=2, H=8 * 6, W=16), mesh)  # 6 tile rows % 4 != 0
+    frames = _frames(B=2, H=32, W=16)
+    with pytest.raises(ValueError, match="CPU devices"):
+        encode_sharded(frames, mesh, backend="xla")
+    with pytest.raises(ValueError, match="unknown"):
+        encode_sharded(frames, mesh, backend="tiles")
+    with pytest.raises(ValueError, match="data shards"):
+        encode_sharded(frames[:1], mesh)
+
+
+@pytest.mark.parametrize("n_data,n_tiles", [(2, 2), (1, 4)])
+def test_sharded_decode_roundtrip(n_data, n_tiles):
+    mesh = _mesh(n_data, n_tiles)
+    frames = _frames(B=n_data * 3, H=8 * 4, W=30, seed=3)
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
+    np.testing.assert_array_equal(decode_sharded(depth, mn, payload, mesh, H=32, W=30, Hp=Hp),
+                                  frames)
+
+
+def test_sharded_roundtrip_step_ragged():
+    """Ragged H is edge-padded to whole bands (37 → 48 rows, 3 tile rows a
+    band); n64 is the global sum over the padded frames."""
+    frames = _frames(B=4, H=37, W=29, seed=9)
+    out, n64 = sharded_roundtrip_step(frames, _mesh(2, 2))
+    np.testing.assert_array_equal(out, frames)
+    padded = np.concatenate([frames, np.repeat(frames[:, -1:], 11, axis=1)], axis=1)
+    assert n64 == sum(_oracle_n64(f) for f in padded) > 0
+
+
+def test_sharded_totals_and_bases():
+    frames = _frames(B=2, H=32, W=32, seed=4)
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, _mesh(1, 2))
+    assert totals.dtype == bases.dtype == np.int32 and totals.shape == (2, 2)
+    for b in range(2):
+        assert int(totals[:, b].sum()) == 2 * _oracle_n64(frames[b])
+        np.testing.assert_array_equal(bases[:, b], [0, totals[0, b]])  # exclusive scan
+
+
+def test_split_payload_inverse_of_assemble():
+    mesh = _mesh(2, 2)
+    frames = _frames(B=4, H=32, W=30, seed=7)
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
+    pays = assemble_payload_host(payload, totals)
+    flat = np.zeros((4, max(p.size for p in pays)), np.uint32)
+    for b, p in enumerate(pays):
+        flat[b, : p.size] = p
+    segs = split_payload_host(flat, depth, 32, 30, 2)
+    assert segs.shape == payload.shape
+    again = split_payload_host(flat, depth, 32, 30, 2, out=segs)  # a reused buffer
+    assert again is segs
+    dev, sp = payload.reshape(4, 2, -1), segs.reshape(4, 2, -1)
+    for b in range(4):
+        for s in range(2):
+            np.testing.assert_array_equal(sp[b, s, : totals[s, b]], dev[b, s, : totals[s, b]])
+    np.testing.assert_array_equal(decode_sharded(depth, mn, segs, mesh, H=32, W=30, Hp=Hp), frames)
+
+
+def test_assemble_payload_padded_matches_ragged():
+    frames = _frames(B=4, H=32, W=30, seed=5)
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, _mesh(2, 2))
+    segments = payload.reshape(4, 2, -1)
+    buf = np.full((6, 16 * 4 * 4), 7, np.uint32)  # wider and taller than needed
+    for out in (None, buf):
+        pay, n64 = assemble_payload_padded(payload, totals, out=out)
+        assert out is None or np.shares_memory(pay, buf)
+        for b in range(4):
+            expected = np.concatenate([segments[b, s, : totals[s, b]] for s in range(2)])
+            assert 2 * int(n64[b]) == expected.size
+            np.testing.assert_array_equal(pay[b, : expected.size], expected)
+
+
+def test_decode_tolerates_garbage_segment_tails():
+    """Slot words past each shard's live count never reach the output, at
+    the encoder's stride and at a wider one."""
+    mesh = _mesh(2, 2)
+    frames = _frames(B=4, H=32, W=30, seed=13)
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
+    S = payload.shape[1] // 2
+    for stride in (S, S + 5):
+        segs = np.full((4, 2, stride), 0xDEADBEEF, np.uint32)
+        for b in range(4):
+            for s in range(2):
+                segs[b, s, : totals[s, b]] = payload[b, s * S : s * S + totals[s, b]]
+        out = decode_sharded(depth, mn, segs.reshape(4, -1), mesh, H=32, W=30, Hp=Hp)
+        np.testing.assert_array_equal(out, frames)
+
+
+def test_depth8_band_beside_camera_band(monkeypatch):
+    """A frame whose top band is random (every tile depth 8) and bottom band
+    depth-5 content: one shard takes the uniform pair, the other the general
+    pair, and the stream is still the oracle's."""
+    calls = []
+    for name in ("encode_payload", "encode_payload_u8", "decode_frames", "decode_frames_u8"):
+        fn = getattr(band, name)
+        monkeypatch.setattr(band, name, lambda *a, _fn=fn, _n=name, **k: (calls.append(_n), _fn(*a, **k))[1])
+    frames = np.concatenate([make_content(40, 16, 2, kind="random"), _frames(2, 16, 40)], axis=1)
+    mesh = _mesh(1, 2)
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
+    assert sorted(calls) == ["encode_payload", "encode_payload_u8"]
+    for b in range(2):
+        expected = ref.pack_image(frames[b])
+        assert (depth[b, :10] == 8).all() and (depth[b, 10:] < 8).all()
+        assert assemble_payload_host(payload, totals)[b].tobytes() == expected[12 + 2 * 20:]
+    calls.clear()
+    np.testing.assert_array_equal(decode_sharded(depth, mn, payload, mesh, H=32, W=40, Hp=Hp), frames)
+    assert sorted(calls) == ["decode_frames", "decode_frames_u8"]
+
+
+def test_iter_video_sharded_bounded_walker(tmp_path):
+    """Batch-sized chunks (4 + 3: the tail fills the data axis with a zero
+    record), equal to read_video_sharded's frames."""
+    mesh = _mesh(2, 2)
+    frames = _frames(B=7, H=32, W=24, seed=23)
+    p = tmp_path / "w.dbde"
+    write_video_sharded(p, frames, mesh, frame_hz=2.0, batch_size=4)
+    sizes, seen = [], []
+    for headers, chunk in iter_video_sharded(p, mesh, batch_size=4):
+        assert chunk.shape[0] == len(headers)
+        sizes.append(chunk.shape[0])
+        seen.append(chunk)
+    assert sizes == [4, 3]
+    np.testing.assert_array_equal(np.concatenate(seen), frames)
+    vh, headers, out = read_video_sharded(p, mesh, batch_size=4)
+    np.testing.assert_array_equal(out, frames)
+    assert [h.index for h in headers] == list(range(7))
+
+
+@pytest.mark.parametrize("n_data,n_tiles", [(2, 2), (3, 1)])
+def test_sharded_file_write_and_read(tmp_path, n_data, n_tiles):
+    """A tail batch that does not fill the data axis: the file is the
+    oracle's and the port's single-device writer's, byte for byte."""
+    mesh = _mesh(n_data, n_tiles)
+    frames = _frames(B=5, H=32, W=24, seed=21)
+    p, single = tmp_path / "s.dbde", tmp_path / "single.dbde"
+    write_video_sharded(p, frames, mesh, frame_hz=7.0, batch_size=4)
+    write_video(single, frames, frame_hz=7.0, device="cpu", batch_size=4)
+    assert p.read_bytes() == ref.encode_video(list(frames), frame_hz=7.0) == single.read_bytes()
+    vh, headers, out = read_video_sharded(p, mesh, batch_size=4)
+    assert vh.frame_hz == 7.0
+    assert [h.index for h in headers] == list(range(5))
+    np.testing.assert_array_equal(out, frames)
+
+
+def test_dryrun_multichip_on_cpu(capsys):
+    dryrun_multichip(4, device="cpu")
+    assert "dryrun_multichip ok: mesh=(2x2)" in capsys.readouterr().out
+
+
+def test_sharded_arrays_match_jax_package():
+    """On a 2x2 mesh at 4x32x30 the port's sharded arrays equal the JAX
+    package's backend="xla" ones, and the JAX segments, at their own
+    stride, decode exactly in the port."""
+    import jax
+
+    frames = _frames(B=4, H=32, W=30, seed=31)
+    jmesh = jax_make_mesh(n_data=2, n_tiles=2, devices=jax.devices("cpu")[:4])
+    jd, jm, jp, jt, jb, jHp = (np.asarray(a) for a in jax_encode_sharded(frames, jmesh, backend="xla"))
+    mesh = _mesh(2, 2)
+    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
+    assert Hp == int(jHp)
+    for ours, theirs in ((depth, jd), (mn, jm), (totals, jt), (bases, jb)):
+        np.testing.assert_array_equal(ours, theirs)
+    for ours, theirs in zip(assemble_payload_host(payload, totals), assemble_payload_host(jp, jt)):
+        np.testing.assert_array_equal(ours, theirs)
+    np.testing.assert_array_equal(decode_sharded(jd, jm, jp, mesh, H=32, W=30, Hp=Hp), frames)

@@ -205,6 +205,39 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert set(launches.values()) == {0}
 
 
+def test_chip_smoke_sharded_rehearsal_on_cpu(monkeypatch):
+    """Phase 5 of chip_smoke.py at a tiny size on a mesh of CPU slots (plain
+    versions only), and the launches it would require on a GPU mesh."""
+    smoke = _chip_smoke()
+    entry, dryruns = smoke.graft_entry.entry, []
+
+    def small_entry(device):  # entry()'s step on a corner of its example
+        fn, (example,) = entry(device)
+        return fn, (np.ascontiguousarray(example[:, :16, :40]),)
+
+    # the dry run itself is tests/test_torch_parallel.py's
+    monkeypatch.setattr(smoke.graft_entry, "entry", small_entry)
+    monkeypatch.setattr(smoke.graft_entry, "dryrun_multichip",
+                        lambda n, device: dryruns.append((n, device)))
+    cpu = torch.device("cpu")
+    camera = make_content(24, 16, 4)
+    frames = np.concatenate([camera, make_content(24, 16, 2, kind="random"), camera[:1]])
+    launches, seconds = smoke.check_sharded_path(cpu, frames, 2, make_content(20, 27, 2))
+    assert dryruns == [(8, "cpu")]
+    assert set(launches) == {"a", "b", "c", "d"}
+    assert all(set(n.values()) == {0} for n in launches.values())
+    assert set(seconds) == {"write_video", "write_video_sharded", "iter_video_sharded",
+                            "read_video"}
+    # on a 2x2 GPU mesh: 4 batches of 4 shards; the random batch's bands
+    # take the uniform pair, and the tail's zero record makes its read
+    # shard general
+    assert smoke.expected_sharded_launches(frames, 2, 2, 2) == {
+        "encode_depths": 16, "encode_payload": 12, "decode": 12,
+        "encode_payload_u8": 4, "decode_u8": 4, "encode_tiles": 0, "decode_tiles": 0}
+    monkeypatch.setattr(smoke, "_time_ms", lambda fn, iters: (fn(), 1.0)[1])
+    assert smoke.time_shard_encodes(cpu, camera) == (1.0, 1.0)
+
+
 def test_chip_smoke_main_needs_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible; this checks the error without one")
