@@ -43,16 +43,30 @@ Phases, one line each, in order:
      graft_entry.dryrun_multichip(8) and graft_entry.entry(); the sharded
      and single-device write and read times, and the shard encodes with and
      without the per-shard depth-8 read-back
+  6  the CLI on the card, driven in-process through dbde_tpu_torch.cli.main:
+     golden (3 frames), info --scan and decode against GOLDEN_8x16_IMAGE;
+     at the five geometries of tools/tpu_quickcheck.py (2048² camera and
+     random, 3072×64 camera, 2536×2048 camera, 1024×64 flat; two frames
+     each) encode (the file equal to the numpy oracle's), decode (equal to
+     the raw input) and roundtrip, each command's launches as the content
+     predicts; decode --pgm-dir and preview (one frame's decode) on the
+     3072×64 file; `python -m dbde_tpu_torch.cli info` as a subprocess
+     that imports no jax (on another core meanwhile); then bench in its
+     six modes at its defaults (8 frames of 2048²), each JSON line beside
+     the card's name and power limit.  Phase 1 starts torch.profiler once,
+     timed on its own, so that the first bench does not pay for it
 
 Any failure raises, so the script exits non-zero without the final line.
-Phase 5's launch counts are a line of their own; then a line lists the
-kernels as JSON (launches from phases 3 and 3b); the last line is
+Phase 5's and phase 6's launch counts are lines of their own; then a line
+lists the kernels as JSON (launches from phases 3 and 3b); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import filecmp
+import io
 import json
 import os
 import subprocess
@@ -63,7 +77,7 @@ import time
 import numpy as np
 import torch
 
-from dbde_tpu_torch import graft_entry, read_video, ref_numpy, write_video
+from dbde_tpu_torch import cli, graft_entry, read_video, ref_numpy, write_video
 from dbde_tpu_torch.bench_core import make_adversarial, make_content, make_depth_runs
 from dbde_tpu_torch.codec import (
     DbdeCodec,
@@ -87,6 +101,9 @@ from dbde_tpu_torch.parallel import (
     sharded_roundtrip_step,
     write_video_sharded,
 )
+from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_FILE
+from dbde_tpu_torch.utils.profiling import cuda_event_seconds, measure_device_seconds
+from dbde_tpu_torch.utils.visualize import read_pgm
 
 BAND_SOURCE = "dbde_tpu_torch/csrc/dbde_kernels.cu"
 TILES_SOURCE = "dbde_tpu_torch/csrc/dbde_tiles.cu"
@@ -525,16 +542,7 @@ def time_shard_encodes(device: torch.device, frames: np.ndarray, iters: int = 20
 
 
 def _time_ms(fn, iters: int) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return 1e3 * cuda_event_seconds(fn, iters)
 
 
 def _in_turns(cases: dict, iters: int) -> dict:
@@ -682,6 +690,142 @@ def _n64_total(frames: np.ndarray, device: torch.device) -> int:
     return int(d.to(torch.int64).sum())
 
 
+# tools/tpu_quickcheck.py's geometries: (W, H, content)
+QUICKCHECK = ((2048, 2048, "camera"), (2048, 2048, "random"), (3072, 64, "camera"),
+              (2536, 2048, "camera"), (1024, 64, "flat"))
+ENCODE_KEYS = ("encode_depths", "encode_payload", "encode_payload_u8")
+BENCH_MODES = ((), ("--content", "random"), ("--latency",), ("--stream",), ("--host-stream",),
+               ("--composed",))
+
+
+def _cli(argv, launches: dict) -> tuple[int, str, dict]:
+    """``cli.main(argv)`` in-process → (exit code, its stdout, its launches),
+    the counts set to 0 just before and read just after; ``launches``
+    accumulates them."""
+    out = io.StringIO()
+    band.reset_launches()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    n = dict(band.LAUNCHES)
+    for k, v in n.items():
+        launches[k] += v
+    return rc, out.getvalue(), n
+
+
+def check_cli(tmp: str, geometries, pgm_geometry: int, device_args=()) -> dict[str, int]:
+    """Phase 6: the CLI's file commands in ``tmp``, on the card, or on the
+    CPU with ``device_args=("--no-device",)`` (which launches nothing).
+
+    golden → info --scan → decode against GOLDEN_8x16_IMAGE; for each (W,
+    H, content) of ``geometries``, two frames of ``make_content``: encode
+    (the file must be the numpy oracle's, record by record), decode -o (the
+    raw input back), roundtrip, each command's launches as the oracle's
+    depths predict; decode --pgm-dir (``read_pgm`` must give the frames
+    back) and preview --frame 1 (one frame's decode) on geometry
+    ``pgm_geometry``.  Returns the launches summed over the commands."""
+    total = dict.fromkeys(band.LAUNCHES, 0)
+    on_gpu = not device_args
+    none = dict.fromkeys(band.LAUNCHES, 0)
+
+    def run(*argv, what: str):
+        rc, text, n = _cli(argv, total)
+        _require(rc == 0, f"cli {what} exited {rc}")
+        return text, n
+
+    golden, golden_raw = os.path.join(tmp, "g.dbde"), os.path.join(tmp, "g.raw")
+    run("golden", "-o", golden, "--frames", "3", what="golden")
+    text, _ = run("info", golden, "--scan", what="info --scan")
+    _require("frames:    3" in text.splitlines(), f"info --scan printed {text!r}")
+    run("decode", golden, "-o", golden_raw, *device_args, what="decode of the golden file")
+    _require(np.fromfile(golden_raw, np.uint8).tobytes() == GOLDEN_8x16_IMAGE.tobytes() * 3,
+             "the golden file did not decode to GOLDEN_8x16_IMAGE three times")
+
+    for i, (W, H, content) in enumerate(geometries):
+        label = f"{W}x{H} {content}"
+        frames = make_content(W, H, 2, content)
+        raw, enc, dec = (os.path.join(tmp, f"q{i}.{ext}") for ext in ("raw", "dbde", "out"))
+        frames.tofile(raw)
+        # write_video + read_video launches; encode, decode and roundtrip
+        # each take their share (CLI batch 16: one batch of 2 frames)
+        both = expected_launches(frames, 16) if on_gpu else none
+        want_enc = {k: v if k in ENCODE_KEYS else 0 for k, v in both.items()}
+        want_dec = {k: 0 if k in ENCODE_KEYS else v for k, v in both.items()}
+        _, n = run("encode", raw, "-o", enc, "--width", str(W), "--height", str(H), *device_args,
+                   what=f"encode {label}")
+        _require(n == want_enc, f"{label}: encode launched {n}, expected {want_enc}")
+        with open(enc, "rb") as f:
+            _require(f.read() == ref_numpy.encode_video(frames),
+                     f"{label}: the encoded file differs from the numpy oracle's records")
+        _, n = run("decode", enc, "-o", dec, *device_args, what=f"decode {label}")
+        _require(n == want_dec, f"{label}: decode launched {n}, expected {want_dec}")
+        _require(filecmp.cmp(raw, dec, shallow=False), f"{label}: decode -o differs from the input")
+        text, n = run("roundtrip", enc, *device_args, what=f"roundtrip {label}")
+        _require(text.startswith("OK: 2 frames") and n == both,
+                 f"{label}: roundtrip printed {text!r}, launched {n}, expected {both}")
+        if i == pgm_geometry:
+            pgm_dir = os.path.join(tmp, "pgm")
+            run("decode", enc, "--pgm-dir", pgm_dir, *device_args, what=f"decode --pgm-dir {label}")
+            for j, frame in enumerate(frames):
+                _require(np.array_equal(read_pgm(os.path.join(pgm_dir, f"frame_{j:06d}.pgm")),
+                                        frame), f"{label}: PGM {j} is not the frame")
+            text, n = run("preview", enc, "--frame", "1", *device_args, what=f"preview {label}")
+            one = expected_launches(frames[1:], 16) if on_gpu else none
+            want = {k: 0 if k in ENCODE_KEYS else v for k, v in one.items()}
+            _require(text.startswith(f"frame 1 ({W}x{H}):") and n == want,
+                     f"preview printed {text[:80]!r}, launched {n}, expected {want}")
+    return total
+
+
+def _numbers(value):
+    if isinstance(value, dict):
+        for v in value.values():
+            yield from _numbers(v)
+    elif isinstance(value, (int, float)) and not isinstance(value, bool):
+        yield value
+
+
+def run_cli_benches(card: str) -> dict[str, int]:
+    """Phase 6: ``bench`` in each of BENCH_MODES at the CLI's defaults; every
+    number in each result must be positive and run_bench's and
+    run_latency_bench's ``device`` the card.  Prints each JSON line beside
+    ``card``; returns the launches summed over the modes."""
+    total = dict.fromkeys(band.LAUNCHES, 0)
+    for mode in BENCH_MODES:
+        t0 = time.perf_counter()
+        rc, text, _ = _cli(("bench", *mode), total)
+        seconds = time.perf_counter() - t0
+        line = text.strip().splitlines()[-1]
+        result = json.loads(line)
+        name = " ".join(mode) or "(default)"
+        _require(rc == 0 and all(v > 0 for v in _numbers(result)),
+                 f"bench {name}: exit {rc}, a result not positive: {line}")
+        _require(result.get("device", card) == card,
+                 f"bench {name}: device {result.get('device')!r}, not {card!r}")
+        print(f"phase 6 bench {name}: {line} on {card} ({seconds:.1f} s)", flush=True)
+    return total
+
+
+def start_cli_subprocess(path: str) -> subprocess.Popen:
+    """Start ``python -X importtime -m dbde_tpu_torch.cli info path`` in a
+    fresh interpreter; :func:`finish_cli_subprocess` checks it.  Use it as
+    a context manager, which waits for it."""
+    return subprocess.Popen([sys.executable, "-X", "importtime", "-m", "dbde_tpu_torch.cli",
+                             "info", path], cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_cli_subprocess(proc: subprocess.Popen) -> None:
+    """The subprocess exited 0 with the header printed, and ``-X
+    importtime`` shows no jax or JAX-package import."""
+    out, err = proc.communicate(timeout=120)
+    _require(proc.returncode == 0 and out.startswith("geometry:"),
+             f"python -m dbde_tpu_torch.cli info: exit {proc.returncode}, {err[-2000:]}")
+    roots = {line.rsplit("|", 1)[-1].strip().split(".")[0]
+             for line in err.splitlines() if line.startswith("import time:")}
+    _require(not roots & {"jax", "jaxlib", "dbde_tpu"},
+             f"the CLI subprocess imported {sorted(roots & {'jax', 'jaxlib', 'dbde_tpu'})}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA GPU and none is visible")
@@ -708,6 +852,15 @@ def main() -> int:
     native = native_binding.native_available()
     print(f"phase 1 native IO library: {'built' if native else 'unavailable (numpy path)'} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    # so is the profiler's first start, which phase 6's benches would pay
+    x = torch.zeros((1, 8, 8), dtype=torch.uint8, device=device)
+    starts = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        measure_device_seconds(lambda: band.encode_depths(x), reps=1)
+        starts.append(time.perf_counter() - t0)
+    print(f"phase 1 torch.profiler: first measure_device_seconds {starts[0]:.2f} s, "
+          f"second {starts[1]:.2f} s", flush=True)
 
     camera16 = make_content(2048, 2048, 16)
     geometries = [
@@ -783,6 +936,24 @@ def main() -> int:
     print(f"phase 5 shard encodes, 2x2 mesh, 16x2048x2048 camera: {checked_ms:.4f} ms with the "
           f"depth-8 check (one read-back a shard), {unchecked_ms:.4f} ms without "
           f"(CUDA events) on {card}; phase 5 took {time.perf_counter() - t5:.1f} s", flush=True)
+
+    t6 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sub_file = os.path.join(tmp, "sub.dbde")
+        with open(sub_file, "wb") as f:
+            f.write(GOLDEN_8x16_FILE)
+        with start_cli_subprocess(sub_file) as sub:  # on another core meanwhile
+            cli_launches = check_cli(tmp, QUICKCHECK, pgm_geometry=2)
+            finish_cli_subprocess(sub)
+    print("phase 6 CLI: golden, info --scan and decode equal to GOLDEN_8x16_IMAGE, and "
+          "python -m dbde_tpu_torch.cli info in a subprocess that imports no jax; "
+          + ", ".join(f"{W}x{H} {c}" for W, H, c in QUICKCHECK)
+          + ": encode equal to the numpy oracle's file, decode equal to the input, "
+          "roundtrip OK, launches as the content predicts; decode --pgm-dir and preview "
+          f"on 3072x64 ({time.perf_counter() - t6:.1f} s)", flush=True)
+    bench_launches = run_cli_benches(card)
+    print("phase 6 launches: " + json.dumps({"cli files": cli_launches, "bench": bench_launches}))
+    print(f"phase 6 took {time.perf_counter() - t6:.1f} s", flush=True)
 
     _require("jax" not in sys.modules, "jax was imported")
     _require(not any(m == "dbde_tpu" or m.startswith("dbde_tpu.") for m in sys.modules),

@@ -14,12 +14,25 @@ same bytes.  Layers:
     the multi-device dry run
   * :mod:`dbde_tpu_torch.format`, :mod:`~dbde_tpu_torch.ref_numpy`,
     :mod:`~dbde_tpu_torch.golden_vectors`, :mod:`~dbde_tpu_torch.bench_core`,
-    :mod:`dbde_tpu_torch.native` — host modules: container serde, the
-    numpy oracle, the golden vectors, synthetic content, native record IO
+    :mod:`dbde_tpu_torch.native` — host modules: container serde (its
+    header names re-exported here), the numpy oracle, the golden vectors,
+    synthetic content and the bench runners, native record IO
+  * :mod:`dbde_tpu_torch.cli` — ``python -m dbde_tpu_torch.cli``;
+    :mod:`dbde_tpu_torch.utils` — frame previews and PGM files, device
+    timing
 
 The port imports ``torch`` and never ``jax``, and nothing of ``dbde_tpu``:
 it keeps its own copy of each host module it needs.
 """
+
+from .format import (
+    FRAME_HEADER_BYTES,
+    VIDEO_HEADER_BYTES,
+    FrameHeader,
+    VideoHeader,
+    unpack_frame_header,
+    unpack_video_header,
+)
 
 __version__ = "0.1.0"
 
@@ -34,7 +47,8 @@ _LAZY = {
 
 
 def __getattr__(name):
-    """Lazy re-exports: ``import dbde_tpu_torch`` loads neither torch nor the kernels."""
+    """Lazy re-exports: ``import dbde_tpu_torch`` loads neither torch nor the kernels
+    (the format names above are numpy-free struct code)."""
     if name in _LAZY:
         import importlib
 

@@ -31,7 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .format import FrameHeader, tile_grid
+from .format import FrameHeader, packed_image_size, tile_grid
 from .ops import band, tile_layout
 from .ops.bitpack import MAX_WORDS_PER_TILE
 from .ops.payload import word_offsets
@@ -290,3 +290,8 @@ def unpack_frames_bytes(buf: bytes, W: int, H: int, offsets: list[int],
         payload[b, : 2 * n64] = np.frombuffer(buf, np.uint32, 2 * n64, off + 12 + 2 * T)
         n64s[b] = n64
     return depths, mins, payload, n64s
+
+
+def frame_data_size(depths_row: np.ndarray, W: int, H: int) -> int:
+    """Encoded byte size of one frame's data block."""
+    return packed_image_size(W, H, int(np.asarray(depths_row).astype(np.int64).sum()))

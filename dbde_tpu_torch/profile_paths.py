@@ -21,39 +21,16 @@ bound on the unprofiled path's.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 from collections import defaultdict
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .bench_core import make_content
-
 from .codec import DbdeCodec
-
-
-def device_intervals(prof) -> list[tuple[str, float, float]]:
-    """(name, start µs, end µs) of every device activity the profiler saw."""
-    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
-
-
-def idle_share(intervals) -> tuple[float, float, float]:
-    """→ (busy µs, span µs, idle share) of the union of the intervals."""
-    spans = sorted((s, e) for _, s, e in intervals)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
-    return busy, span, 1.0 - busy / span
+from .utils.profiling import card_name, device_intervals, idle_share
 
 
 def profile_path(label: str, fn, iters: int) -> dict:
@@ -90,9 +67,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_paths needs a CUDA GPU and none is visible")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(f"{smi.stdout.strip()}; torch {torch.__version__}; CUDA {torch.version.cuda}")
+    print(f"{card_name(0)}; torch {torch.__version__}; CUDA {torch.version.cuda}")
     H, W = args.height, args.width
     codec = DbdeCodec(H, W, device="cuda", backend=args.backend)
     for content in ("camera", "random"):

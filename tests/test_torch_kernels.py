@@ -282,3 +282,42 @@ def test_sharded_shards_run_their_kernels(cuda):
     out = decode_sharded(depth, mins, segs.reshape(4, -1), mesh, H=32, W=40, Hp=Hp)
     assert {k: v for k, v in band.LAUNCHES.items() if v} == {"decode": 2, "decode_u8": 2}
     np.testing.assert_array_equal(out, frames)
+
+
+def test_cli_on_the_card_matches_no_device(cuda, tmp_path, capsys):
+    """CLI encode and decode on the card: the file equals --no-device's byte
+    for byte, the frames come back, and K1–K3 launched; preview decodes its
+    one frame with K3 and prints what --no-device prints."""
+    from dbde_tpu_torch import cli
+
+    frames = make_content(72, 40, 3)
+    raw = tmp_path / "in.raw"
+    frames.tofile(raw)
+    size = ["--width", "72", "--height", "40", "--batch", "2"]
+    band.reset_launches()
+    assert cli.main(["encode", str(raw), "-o", str(tmp_path / "gpu.dbde"), *size]) == 0
+    assert cli.main(["decode", str(tmp_path / "gpu.dbde"), "-o", str(tmp_path / "out.raw"),
+                     "--batch", "2"]) == 0
+    assert band.LAUNCHES["encode_depths"] == 2 and band.LAUNCHES["encode_payload"] == 2
+    assert band.LAUNCHES["decode"] == 2
+    assert cli.main(["encode", str(raw), "-o", str(tmp_path / "cpu.dbde"), *size,
+                     "--no-device"]) == 0
+    assert (tmp_path / "gpu.dbde").read_bytes() == (tmp_path / "cpu.dbde").read_bytes()
+    assert (tmp_path / "out.raw").read_bytes() == raw.read_bytes()
+    assert cli.main(["roundtrip", str(tmp_path / "gpu.dbde")]) == 0
+    capsys.readouterr()
+    band.reset_launches()
+    assert cli.main(["preview", str(tmp_path / "gpu.dbde"), "--frame", "2"]) == 0
+    on_card = capsys.readouterr().out
+    assert band.LAUNCHES["decode"] == 1 and band.LAUNCHES["encode_depths"] == 0
+    assert cli.main(["preview", str(tmp_path / "gpu.dbde"), "--frame", "2", "--no-device"]) == 0
+    assert capsys.readouterr().out == on_card
+
+
+def test_run_bench_on_the_card(cuda):
+    from dbde_tpu_torch.bench_core import run_bench
+
+    r = run_bench(256, 256, frames=2, iters=3, device=cuda)
+    assert r["value"] > 0 and r["encode_gpix_per_s"] > 0
+    assert r["device_busy_ms"]["encode"] > 0 and r["device_busy_ms"]["decode"] > 0
+    assert torch.cuda.get_device_name(cuda).split()[-1] in r["device"]

@@ -147,12 +147,15 @@ for mod in pkgutil.walk_packages(dbde_tpu_torch.__path__, "dbde_tpu_torch."):
     importlib.import_module(mod.name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-from dbde_tpu_torch import read_video, write_video
+from dbde_tpu_torch import cli, read_video, write_video
 frames = np.random.default_rng(0).integers(0, 256, (3, 12, 20)).astype(np.uint8)
 with tempfile.TemporaryDirectory() as d:
     path = os.path.join(d, "v.dbde")
     write_video(path, frames, device="cpu", batch_size=2)
     _, _, out = read_video(path, device="cpu", batch_size=2)
+    golden = os.path.join(d, "g.dbde")
+    assert cli.main(["golden", "-o", golden, "--frames", "2"]) == 0
+    assert cli.main(["info", golden, "--scan"]) == 0
 assert (out == frames).all()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "dbde_tpu"))
@@ -163,8 +166,9 @@ print("no-jax ok", len([m for m in sys.modules if m.startswith("dbde_tpu_torch")
 
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one has jax from conftest), importing
-    every module of the port, loading chip_smoke.py and a full write and
-    read on the CPU leave jax and the JAX package out of sys.modules."""
+    every module of the port, loading chip_smoke.py, a full write and read
+    on the CPU and the CLI's golden and info leave jax and the JAX package
+    out of sys.modules."""
     proc = subprocess.run([sys.executable, "-c", NO_JAX], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

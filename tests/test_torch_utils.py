@@ -1,0 +1,268 @@
+"""The port's utils and bench runners against the JAX package's, on the CPU.
+
+Visualization: the same strings, PGM bytes and arrays as
+``dbde_tpu.utils.visualize``.  Runners: ``device="cpu"`` at tiny sizes,
+with the JAX runners' result keys; the device timers, which need a GPU,
+are replaced by one call of the timed function and fixed times.  Only
+``run_host_stream_bench`` runs on both sides, as the JAX one is host-only
+(no JAX compile here).  Tolerance
+0 throughout: everything compared is integer-valued or text.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from dbde_tpu import bench_core as jax_bench
+from dbde_tpu.utils import visualize as jax_visualize
+from dbde_tpu_torch import bench_core, ref_numpy
+from dbde_tpu_torch.codec import frame_data_size
+from dbde_tpu_torch.utils import profiling
+from dbde_tpu_torch.utils import visualize
+
+BOTH = pytest.mark.parametrize("vis", [jax_visualize, visualize], ids=["jax", "port"])
+
+
+# -- the five cases of tests/test_visualize.py, over both packages ----------
+
+
+@BOTH
+def test_pgm_p2_roundtrip(vis, tmp_path):
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (17, 23)).astype(np.uint8)
+    p = tmp_path / "f.pgm"
+    vis.write_pgm(p, img)
+    np.testing.assert_array_equal(vis.read_pgm(p), img)
+
+
+@BOTH
+def test_pgm_p5_8bit(vis, tmp_path):
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 256, (5, 7)).astype(np.uint8)
+    img[0, 0] = 0x20  # raster starts with a whitespace byte: must not be eaten
+    p = tmp_path / "f.pgm"
+    p.write_bytes(b"P5\n7 5\n255\n" + img.tobytes())
+    np.testing.assert_array_equal(vis.read_pgm(p), img)
+
+
+@BOTH
+def test_pgm_p5_maxval_scaling(vis, tmp_path):
+    img = np.array([[0, 7, 15]], np.uint8)
+    p = tmp_path / "f.pgm"
+    p.write_bytes(b"P5 3 1 15 " + img.tobytes())
+    np.testing.assert_array_equal(vis.read_pgm(p), (img.astype(np.int64) * 255 // 15))
+
+
+@BOTH
+def test_pgm_p5_16bit(vis, tmp_path):
+    vals = np.array([[0, 1234, 65535]], ">u2")
+    p = tmp_path / "f.pgm"
+    p.write_bytes(b"P5\n3 1\n65535\n" + vals.tobytes())
+    expect = (vals.astype(np.int64) * 255 // 65535).astype(np.uint8)
+    np.testing.assert_array_equal(vis.read_pgm(p), expect)
+
+
+@BOTH
+def test_ascii_preview_flat(vis):
+    out = vis.ascii_preview(np.full((64, 64), 9, np.uint8))
+    assert out and set(out.replace("\n", "")) == {" "}
+
+
+# -- the port against the JAX package ---------------------------------------
+
+
+PREVIEWS = [  # (image shape, seed, size, x0, y0)
+    ((64, 64), 0, 32, 0, 0),
+    ((24, 40), 1, 8, 0, 0),
+    ((19, 27), 2, 4, 3, 5),
+    ((100, 37), 3, 16, 10, 2),
+    ((5, 7), 4, 32, 0, 0),      # smaller than size: one pixel a cell
+    ((9, 9), 5, 4, 9, 0),       # empty region
+]
+
+
+@pytest.mark.parametrize("shape, seed, size, x0, y0", PREVIEWS)
+def test_ascii_preview_matches_jax(shape, seed, size, x0, y0):
+    img = np.random.default_rng(seed).integers(0, 256, shape).astype(np.uint8)
+    assert visualize.ascii_preview(img, size, x0, y0) == \
+        jax_visualize.ascii_preview(img, size, x0, y0)
+
+
+@pytest.mark.parametrize("shape, seed", [((17, 23), 0), ((1, 1), 1), ((8, 300), 2)])
+def test_pgm_bytes_and_arrays_match_jax(shape, seed, tmp_path):
+    img = np.random.default_rng(seed).integers(0, 256, shape).astype(np.uint8)
+    ours, theirs = tmp_path / "port.pgm", tmp_path / "jax.pgm"
+    visualize.write_pgm(ours, img)
+    jax_visualize.write_pgm(theirs, img)
+    assert ours.read_bytes() == theirs.read_bytes()
+    p5 = tmp_path / "f5.pgm"
+    p5.write_bytes(f"P5 {shape[1]}\n{shape[0]} 200\n".encode() + img.tobytes())
+    for path in (ours, p5):
+        np.testing.assert_array_equal(visualize.read_pgm(path), jax_visualize.read_pgm(path))
+
+
+def test_read_pgm_rejects_what_jax_rejects(tmp_path):
+    for data in (b"P6\n1 1\n255\n\x00", b"P5 x"):
+        p = tmp_path / "bad.pgm"
+        p.write_bytes(data)
+        for vis in (visualize, jax_visualize):
+            with pytest.raises(ValueError):
+                vis.read_pgm(p)
+
+
+# -- content and sizes -------------------------------------------------------
+
+
+@pytest.mark.parametrize("W, H, frames, seed", [(40, 24, 3, 0), (27, 18, 2, 1), (64, 64, 1, 7)])
+def test_make_uniform8_matches_jax(W, H, frames, seed):
+    got = bench_core.make_uniform8(W, H, frames, seed)
+    np.testing.assert_array_equal(got, jax_bench.make_uniform8(W, H, frames, seed))
+    depths = ref_numpy.tile_depths_mins(ref_numpy.tile_image(got[0]))[0]
+    assert (depths == 8).all()
+
+
+def test_make_uniform8_rejects_single_pixel_edges():
+    with pytest.raises(ValueError):
+        bench_core.make_uniform8(17, 24, 1)
+
+
+def test_frame_data_size_is_pack_image_length():
+    img = bench_core.make_content(27, 19, 1)[0]
+    depths = ref_numpy.tile_depths_mins(ref_numpy.tile_image(img))[0]
+    assert frame_data_size(depths, 27, 19) == len(ref_numpy.pack_image(img))
+
+
+# -- the runners on the CPU --------------------------------------------------
+
+# the JAX runners' literal result keys (dbde_tpu/bench_core.py:202-214,
+# 352-379, 401-415, 462-474, 513-525)
+JAX_KEYS = {
+    "run_bench": {"metric", "value", "unit", "vs_baseline", "encode_gpix_per_s",
+                  "encode_vs_baseline", "geometry", "content", "backend",
+                  "compression_ratio", "device"},
+    "run_stream_bench": {"metric", "value", "unit", "stream_encode_gpix_per_s", "frames",
+                         "geometry", "batch_size", "content", "file_bytes",
+                         "frame_hz_equiv_decode", "frame_hz_equiv_encode", "note"},
+    "run_composed_stream_bench": {"metric", "value", "unit",
+                                  "composed_stream_encode_gpix_per_s", "frame_hz_equiv_decode",
+                                  "frame_hz_equiv_encode", "legs_ms_per_batch",
+                                  "required_link_gb_per_s", "geometry", "batch_size",
+                                  "content", "backend", "host_assembler", "note"},
+    "run_latency_bench": {"metric", "value", "unit", "encode_latency_ms_per_frame",
+                          "decode_hz_equiv", "encode_hz_equiv", "decode_gpix_per_s",
+                          "encode_gpix_per_s", "geometry", "content", "backend", "device",
+                          "note"},
+    "run_host_stream_bench": {"metric", "value", "unit", "frames", "geometry", "batch_size",
+                              "content", "file_bytes", "file_gb_per_s", "frame_hz_equiv",
+                              "note"},
+}
+
+W, H = 40, 24
+
+
+def _ratio(frames: np.ndarray) -> float:
+    return round(sum(len(ref_numpy.pack_image(f)) for f in frames) / frames.size, 4)
+
+
+@pytest.fixture
+def stub_timers(monkeypatch):
+    """``_measure`` calls the timed function once and returns 2 ms a call,
+    1 ms of it busy; ``card_name`` names a stub card."""
+    def measure(fn, reps=4):
+        fn()
+        return 2e-3, 1e-3
+
+    monkeypatch.setattr(bench_core, "_measure", measure)
+    monkeypatch.setattr(bench_core, "card_name", lambda index: "stub card, 1.00 W")
+
+
+@pytest.mark.parametrize("content", ["camera", "random", "flat"])
+def test_run_bench_on_cpu(content, stub_timers):
+    r = bench_core.run_bench(W, H, frames=3, iters=1, content=content, device="cpu")
+    assert set(r) == JAX_KEYS["run_bench"] | {"device_busy_ms"}
+    assert r["device"] == "stub card, 1.00 W" and r["backend"] == "band"
+    assert r["compression_ratio"] == _ratio(bench_core.make_content(W, H, 3, content))
+    assert r["geometry"] == f"3x{H}x{W}"
+    assert r["value"] == round(3 * H * W / 2e-3 / 1e9, 3)
+    assert r["device_busy_ms"] == {"encode": 1.0, "decode": 1.0}
+
+
+def test_run_latency_bench_on_cpu(stub_timers):
+    r = bench_core.run_latency_bench(W, H, content="random", device="cpu")
+    assert set(r) == JAX_KEYS["run_latency_bench"] | {"device_busy_ms"}
+    assert r["value"] == 2.0 and r["geometry"] == f"1x{H}x{W}"
+
+
+def test_run_stream_bench_on_cpu():
+    r = bench_core.run_stream_bench(W, H, frames=5, batch_size=2, repeats=1, device="cpu")
+    assert set(r) == JAX_KEYS["run_stream_bench"]
+    frames = bench_core.make_content(W, H, 5)
+    assert r["file_bytes"] == len(ref_numpy.encode_video(frames, frame_hz=1000.0))
+
+
+def test_run_composed_stream_bench_on_cpu(stub_timers):
+    r = bench_core.run_composed_stream_bench(W, H, frames=6, batch_size=2, device="cpu")
+    assert set(r) == JAX_KEYS["run_composed_stream_bench"] | {"device_busy_ms"}
+    assert set(r["legs_ms_per_batch"]) == {"device_encode", "host_assemble_write",
+                                           "host_walk_parse", "device_decode"}
+    assert all(v > 0 for v in r["legs_ms_per_batch"].values())
+
+
+def test_run_host_stream_bench_matches_jax():
+    kw = dict(width=W, height=H, frames=7, batch_size=3, repeats=1)
+    r = bench_core.run_host_stream_bench(**kw)
+    assert set(r) == JAX_KEYS["run_host_stream_bench"]
+    assert r["file_bytes"] == jax_bench.run_host_stream_bench(**kw)["file_bytes"]
+
+
+# -- no GPU: nothing measures --------------------------------------------------
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible; this checks the errors without one")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: bench_core.run_bench(W, H, frames=1, iters=1),
+    lambda: bench_core.run_bench(W, H, frames=1, iters=1, device="cpu"),
+    lambda: bench_core.run_latency_bench(W, H),
+    lambda: profiling.cuda_event_seconds(lambda: None, reps=1),
+    lambda: profiling.measure_device_seconds(lambda: None, reps=1),
+    lambda: profiling.card_name(0),
+], ids=["run_bench", "run_bench on the CPU", "run_latency_bench", "cuda_event_seconds",
+        "measure_device_seconds", "card_name"])
+def test_gpu_measures_raise_without_cuda(no_gpu, call):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+@pytest.mark.parametrize("intervals, busy, span", [
+    ([("k", 0.0, 10.0)], 10.0, 10.0),
+    ([("a", 0.0, 10.0), ("b", 10.0, 12.0)], 12.0, 12.0),  # touching
+    ([("a", 0.0, 4.0), ("b", 6.0, 8.0), ("c", 1.0, 7.0)], 8.0, 8.0),  # a bridge
+    ([("a", 5.0, 6.0), ("b", 0.0, 1.0), ("c", 9.0, 10.0)], 3.0, 10.0),  # three gaps
+])
+def test_idle_share_on_synthetic_intervals(intervals, busy, span):
+    assert profiling.idle_share(intervals) == (busy, span, 1.0 - busy / span)
+
+
+def test_card_name_finds_the_card_by_uuid(monkeypatch):
+    """nvidia-smi lists cards in PCI order; the torch ordinal's card is the
+    one with its UUID."""
+    uuids = {0: "1111aaaa-0000-0000-0000-000000000001", 1: "2222bbbb-0000-0000-0000-000000000002"}
+    listing = (f"GPU-{uuids[1]}, NVIDIA H100 80GB HBM3, 500.00 W\n"
+               f"GPU-{uuids[0]}, NVIDIA H100 80GB HBM3, 700.00 W\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: types.SimpleNamespace(uuid=uuids[i]))
+    monkeypatch.setattr(profiling.subprocess, "run", lambda argv, **kw: types.SimpleNamespace(
+        returncode=0, stdout=listing, stderr=""))
+    assert profiling.card_name(0) == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert profiling.card_name(1) == "NVIDIA H100 80GB HBM3, 500.00 W"
+    uuids[0] = "3333cccc-0000-0000-0000-000000000003"
+    with pytest.raises(RuntimeError, match="no card with UUID"):
+        profiling.card_name(0)
