@@ -14,12 +14,14 @@ Phases, one line each, in order:
      decode, the uniform depth-8 pair K4 encode_payload_u8 and K5
      decode_u8, and the tiles backend's K6 encode_tiles and K7
      decode_tiles.  K2, K4 and K6 must leave every word past their own
-     untouched; K3, K5 and K7 must decode from payloads with garbage after
-     each frame's stream; where every tile is depth 8 K4's payload must
-     equal K2's; K6's depths, minima, n64 and stream must equal K1's and
-     K2's, from an aligned tiles_W and one 4 bytes off the 8-byte grid
-     (K6's word loads); then K6 50 times on 16 2048² camera and 16 random
-     frames, each result equal to the first and to the plain version's
+     untouched; K2's n64 must be the scan's (word_offsets), also into rows
+     off the 16-byte grid (stride 16*T + 1); K3, K5 and K7 must decode from
+     payloads with garbage after each frame's stream, K3 also from those
+     rows; where every tile is depth 8 K4's payload must equal K2's; K6's
+     depths, minima, n64 and stream must equal K1's and K2's, from an
+     aligned tiles_W and one 4 bytes off the 8-byte grid (K6's word loads);
+     then K6 50 times on 16 2048² camera and 16 random frames, each result
+     equal to the first and to the plain version's
   3  the main path: write_video then read_video of 64 2048² camera frames
      and 16 2048² random frames (every tile depth 8) in batches of 16,
      bit-exact, first records byte-equal to the numpy oracle, each camera
@@ -30,8 +32,12 @@ Phases, one line each, in order:
      oracle's, one K6 and one K7 a batch
   4  timing with CUDA events: each kernel and the encode/decode paths of
      both backends against their plain versions at 16×2048² camera and
-     random content, each kernel beside its bound; then the band and tiles
-     paths side by side at 8×2048×W camera, W ∈ {320, 256, 192, 128}
+     random content, each kernel beside its bound; K2 on the random
+     content (every tile depth 8) beside K4, for the same bytes; K2 and K3
+     at 16×2048×2536 and 2×4096² camera beside their bounds, with the
+     bytes their blocks read from L2 to sum the frame's earlier depths;
+     then the band and tiles paths side by side at 8×2048×W camera, W ∈
+     {320, 256, 192, 128}
   5  the sharded path (dbde_tpu_torch.parallel) on meshes whose every slot
      is the one card: a 2×2 mesh writes 32 camera, 16 random and 1 camera
      2048² frames with write_video_sharded (batch 16; the last batch pads
@@ -174,26 +180,35 @@ def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, 
         _sync(device)
         e1 = max(_max_err(d, dp), _max_err(m, mp))
 
-        offsets, total = word_offsets(d)
-        n64 = (total // 2).cpu().numpy()
         T = d.shape[1]
-        pk = band.encode_payload(x, d, m, offsets, out=_sentinels(B, 16 * T, device))
-        pp = band.encode_payload_plain(x, d, m, offsets, out=_sentinels(B, 16 * T, device))
+        pk, nk = band.encode_payload(x, d, m, out=_sentinels(B, 16 * T, device))
+        pp, np_ = band.encode_payload_plain(x, d, m, out=_sentinels(B, 16 * T, device))
+        # rows 4, 8 and 12 bytes past the 16-byte grid: K2's copy-out and
+        # K3's copy-in at every misalignment
+        pko, nko = band.encode_payload(x, d, m, out=_sentinels(B, 16 * T + 1, device))
+        ppo, _ = band.encode_payload_plain(x, d, m, out=_sentinels(B, 16 * T + 1, device))
         _sync(device)
-        e2 = _max_err(pk, pp)
-        pk_host = pk.cpu().numpy()
+        e2 = max(_max_err(pk, pp), _max_err(pko, ppo), _max_err(nk, np_), _max_err(nko, np_))
+        n64 = nk.cpu().numpy()
+        _require(n64.tolist() == (word_offsets(d)[1] // 2).cpu().numpy().tolist()
+                 and nko.cpu().numpy().tolist() == n64.tolist(),
+                 f"{label}: encode_payload's n64 is not the scan's")
+        pk_host, pko_host = pk.cpu().numpy(), pko.cpu().numpy()
         for b in range(B):
-            _require((pk_host[b, 2 * int(n64[b]):] == SENTINEL).all(),
+            _require((pk_host[b, 2 * int(n64[b]):] == SENTINEL).all()
+                     and (pko_host[b, 2 * int(n64[b]):] == SENTINEL).all(),
                      f"{label}: encode_payload wrote past 2*n64 in frame {b}")
-        rec = pack_frames_bytes(EncodedBatch(d, m, pk, total // 2))[0]
+        rec = pack_frames_bytes(EncodedBatch(d, m, pk, nk))[0]
         _require(rec[20:] == ref_numpy.pack_image(frames[0]),
                  f"{label}: frame 0 differs from the numpy oracle's bytes")
 
-        out_k = band.decode_frames(d, m, offsets, pk, H, W)
-        out_p = band.decode_frames_plain(d, m, offsets, pk, H, W)
-        _sync(device)
-        e3 = _max_err(out_k, out_p)
-        _require(torch.equal(out_k, x), f"{label}: decode did not return the frames")
+        e3 = 0
+        for src in (pk, pko):
+            out_k = band.decode_frames(d, m, src, H, W)
+            out_p = band.decode_frames_plain(d, m, src, H, W)
+            _sync(device)
+            e3 = max(e3, _max_err(out_k, out_p))
+            _require(torch.equal(out_k, x), f"{label}: decode did not return the frames")
 
         # the reader's stride: live words rounded up to 65536, garbage after them
         S = -(-2 * int(n64.max()) // 65536) * 65536 or 2
@@ -201,8 +216,8 @@ def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, 
         for b in range(B):
             short[b, : 2 * int(n64[b])] = pk_host[b, : 2 * int(n64[b])]
         sp = torch.from_numpy(short).to(device)
-        out_k = band.decode_frames(d, m, offsets, sp, H, W)
-        out_p = band.decode_frames_plain(d, m, offsets, sp, H, W)
+        out_k = band.decode_frames(d, m, sp, H, W)
+        out_p = band.decode_frames_plain(d, m, sp, H, W)
         _sync(device)
         e3 = max(e3, _max_err(out_k, out_p))
         _require(torch.equal(out_k, x), f"{label}: short-stride decode did not return the frames")
@@ -520,8 +535,8 @@ def time_shard_encodes(device: torch.device, frames: np.ndarray, iters: int = 20
     """Phase 5: ms per call (CUDA events, in turns) of the four shard
     encodes of ``frames`` on a 2x2 mesh of ``device``: through
     ``DbdeCodec.encode``, whose exact depth-8 choice reads a flag back from
-    the card once a shard, and as K1, scan and K2 on each shard with no
-    check.  Returns (checked ms, unchecked ms)."""
+    the card once a shard, and as K1 and K2 on each shard with no check.
+    Returns (checked ms, unchecked ms)."""
     B, H, W = frames.shape
     codec = DbdeCodec(H // 2, W, device=device)
     shards = [torch.from_numpy(np.ascontiguousarray(
@@ -535,8 +550,7 @@ def time_shard_encodes(device: torch.device, frames: np.ndarray, iters: int = 20
     def unchecked():
         for x in shards:
             d, m = band.encode_depths(x)
-            offsets, _ = word_offsets(d)
-            band.encode_payload(x, d, m, offsets)
+            band.encode_payload(x, d, m)
 
     return _in_turns({"shard encodes": (checked, unchecked)}, iters)["shard encodes"]
 
@@ -559,11 +573,11 @@ def time_paths(device: torch.device, frames: np.ndarray, iters: int = 20) -> dic
     (plain, kernel, kernel, plain) and averaged per version.
 
     The band encode path is ``DbdeCodec.encode`` (K1, the depth-8 check,
-    then scan + K2 or K4) against the same steps in plain versions;
-    "encode path general" is K1 + scan + K2 with no check, which prices the
-    check and, on all-depth-8 content, what K4 saves.  The band decode path
-    is scan + K3, or K5 when every tile is depth 8; that choice is made
-    once on the host, as the reader makes it from host depths.  The tiles
+    then K2 or K4) against the same steps in plain versions; "encode path
+    general" is K1 + K2 with no check, which prices the check and, on
+    all-depth-8 content, what K4 saves.  The band decode path is K3, or K5
+    when every tile is depth 8; that choice is made once on the host, as
+    the reader makes it from host depths.  The tiles
     paths are ``DbdeCodec(backend="tiles")``'s encode (layout transform,
     K6) and decode (padding, K7, layout transform)."""
     B, H, W = frames.shape
@@ -571,8 +585,7 @@ def time_paths(device: torch.device, frames: np.ndarray, iters: int = 20) -> dic
     codec = DbdeCodec(H, W, device=device)
     tiles = DbdeCodec(H, W, device=device, backend="tiles")
     d, m = band.encode_depths(x)
-    off, _ = word_offsets(d)
-    p = band.encode_payload(x, d, m, off)
+    p, _ = band.encode_payload(x, d, m)
     buf = torch.empty_like(p)
     uniform = all_depth8(d)
     T = d.shape[1]
@@ -584,19 +597,14 @@ def time_paths(device: torch.device, frames: np.ndarray, iters: int = 20) -> dic
         dd, mm = band.encode_depths_plain(x)
         if all_depth8(dd):
             return band.encode_payload_u8_plain(x, mm)
-        oo, _ = word_offsets(dd)
-        return band.encode_payload_plain(x, dd, mm, oo)
+        return band.encode_payload_plain(x, dd, mm)
 
     def encode_general(depths_fn, payload_fn):
         dd, mm = depths_fn(x)
-        oo, _ = word_offsets(dd)
-        return payload_fn(x, dd, mm, oo)
+        return payload_fn(x, dd, mm)
 
     def decode(general, u8):
-        if uniform:
-            return u8(m, p, H, W)
-        oo, _ = word_offsets(d)
-        return general(d, m, oo, p, H, W)
+        return u8(m, p, H, W) if uniform else general(d, m, p, H, W)
 
     def tiles_encode_plain():
         return tile_layout.encode_tiles_plain(tile_layout.image_to_tiles_w(x), T)
@@ -609,10 +617,10 @@ def time_paths(device: torch.device, frames: np.ndarray, iters: int = 20) -> dic
 
     cases = {
         "encode_depths": (lambda: band.encode_depths(x), lambda: band.encode_depths_plain(x)),
-        "encode_payload": (lambda: band.encode_payload(x, d, m, off, out=buf),
-                           lambda: band.encode_payload_plain(x, d, m, off, out=buf)),
-        "decode": (lambda: band.decode_frames(d, m, off, p, H, W),
-                   lambda: band.decode_frames_plain(d, m, off, p, H, W)),
+        "encode_payload": (lambda: band.encode_payload(x, d, m, out=buf),
+                           lambda: band.encode_payload_plain(x, d, m, out=buf)),
+        "decode": (lambda: band.decode_frames(d, m, p, H, W),
+                   lambda: band.decode_frames_plain(d, m, p, H, W)),
     }
     if uniform:
         cases.update({
@@ -660,12 +668,43 @@ def time_widths(device: torch.device, widths, H: int = 2048, B: int = 8,
     return out
 
 
+def time_band_sizes(device: torch.device, batches, iters: int = 20) -> dict:
+    """Phase 4, other frame sizes: ms per call of K2 and K3 (CUDA events,
+    timed K3, K2, K2, K3) on each (label, (B, H, W) u8 frames), after
+    checking that they round-trip.  Returns {label: {"encode_payload": ms,
+    "decode": ms}}."""
+    out = {}
+    for label, frames in batches:
+        B, H, W = frames.shape
+        x = torch.from_numpy(frames).to(device)
+        d, m = band.encode_depths(x)
+        p, _ = band.encode_payload(x, d, m)
+        buf = torch.empty_like(p)
+        _require(torch.equal(band.decode_frames(d, m, p, H, W), x),
+                 f"{label}: K2 and K3 did not round-trip")
+        k2, k3 = _in_turns({"K2 against K3": (lambda: band.encode_payload(x, d, m, out=buf),
+                                               lambda: band.decode_frames(d, m, p, H, W))},
+                           iters)["K2 against K3"]
+        out[label] = {"encode_payload": k2, "decode": k3}
+    return out
+
+
+def prefix_bytes(frames: np.ndarray) -> int:
+    """Bytes of depths that K2's or K3's blocks read to sum a frame's
+    earlier depths (chunk g of 1024 tiles reads g*1024), over the batch."""
+    B, H, W = frames.shape
+    h, w = tile_grid(W, H)
+    nb = -(-h * w // 1024)
+    return B * 1024 * nb * (nb - 1) // 2
+
+
 def kernel_bound(key: str, frames: np.ndarray, n64_total: int) -> tuple[float, str, int, int]:
     """The least time the card could take for one call of kernel ``key`` on
     ``frames`` with ``n64_total`` payload u64 words over the batch:
     (ms, "bytes" or "operations", bytes moved, integer operations).  Each
     input is read once and each output written once; the payload counts
-    its live words only."""
+    its live words only, and K2's and K6's outputs include n64 (4 bytes a
+    frame)."""
     B, H, W = frames.shape
     h, w = tile_grid(W, H)
     T = h * w
@@ -673,8 +712,8 @@ def kernel_bound(key: str, frames: np.ndarray, n64_total: int) -> tuple[float, s
     pix, pay = B * H * W, 8 * n64_total
     nbytes, ops = {
         "encode_depths": (pix + 2 * B * T, OPS_DEPTH_MIN * B * T),
-        "encode_payload": (pix + 6 * B * T + pay, OPS_PACK * B * T),
-        "decode": (6 * B * T + pay + pix, OPS_UNPACK * B * T),
+        "encode_payload": (pix + 2 * B * T + pay + 4 * B, OPS_PACK * B * T),
+        "decode": (2 * B * T + pay + pix, OPS_UNPACK * B * T),
         "encode_payload_u8": (pix + B * T + 64 * B * T, OPS_BYTEWISE * B * T),
         "decode_u8": (B * T + 64 * B * T + pix, OPS_BYTEWISE * B * T),
         "encode_tiles": (64 * B * tp + 2 * B * tp + pay + 4 * B,
@@ -911,6 +950,21 @@ def main() -> int:
             print(f"phase 4 {name} 16x2048x2048 {content}: kernel {k_ms:.4f} ms "
                   f"({pix / k_ms / 1e6:.2f} Gpix/s), plain {p_ms:.4f} ms "
                   f"({pix / p_ms / 1e6:.2f} Gpix/s){bound} on {card}", flush=True)
+    k2, k4 = times["random"]["encode_payload"][0], times["random"]["encode_payload_u8"][0]
+    print(f"phase 4 K2 on all-depth-8 content (16x2048x2048 random): {k2:.4f} ms beside "
+          f"K4 {k4:.4f} ms for the same bytes, K2/K4 {k2 / k4:.3f} on {card}", flush=True)
+    sizes = [("16x2048x2536 camera", make_content(2536, 2048, 16)),
+             ("2x4096x4096 camera", make_content(4096, 4096, 2))]
+    size_times = time_band_sizes(device, sizes)
+    for label, frames in sizes:
+        ms, n64_total = size_times[label], _n64_total(frames, device)
+        for key, name in (("encode_payload", "K2"), ("decode", "K3")):
+            b_ms, by, nbytes, _ = kernel_bound(key, frames, n64_total)
+            print(f"phase 4 {name} {label}: {ms[key]:.4f} ms "
+                  f"({frames.size / ms[key] / 1e6:.2f} Gpix/s); bound {b_ms:.4f} ms by {by} "
+                  f"({nbytes / 1e6:.1f} MB), {b_ms / ms[key]:.1%} of it; the blocks' sums "
+                  f"of earlier depths read {prefix_bytes(frames) / 1e6:.1f} MB from L2 "
+                  f"on {card}", flush=True)
     for W, paths in time_widths(device, (320, 256, 192, 128)).items():
         for path_name, (b_ms, t_ms) in paths.items():
             pix = 8 * 2048 * W

@@ -166,7 +166,7 @@ def run_bench(width: int = 2048, height: int = 2048, frames: int = 8,
     """Encode and decode Gpix/s of ``DbdeCodec`` (the band backend) on ``device``.
 
     Encode is ``codec.encode`` of a batch already on the device (K1, the
-    depth-8 check, then scan + K2 or K4); decode is
+    depth-8 check, then K2 or K4); decode is
     ``codec.decode_dispatch`` with host depths, as the reader passes them,
     and minima and payload on the device.  The decoded frames must equal
     the source before anything is reported."""

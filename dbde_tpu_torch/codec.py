@@ -34,7 +34,6 @@ import torch
 from .format import FrameHeader, packed_image_size, tile_grid
 from .ops import band, tile_layout
 from .ops.bitpack import MAX_WORDS_PER_TILE
-from .ops.payload import word_offsets
 
 BACKENDS = ("band", "tiles")
 
@@ -161,13 +160,12 @@ class DbdeCodec:
             return EncodedBatch(depths=d[:, :T].contiguous(), mins=m[:, :T].contiguous(),
                                 payload=payload, n64=n64)
         depths, mins = band.encode_depths(x)
-        if all_depth8(depths):  # static layout: no scan, tile t at word 16*t
+        if all_depth8(depths):  # static layout: tile t at word 16*t
             payload = band.encode_payload_u8(x, mins)
             n64 = torch.full((x.shape[0],), 8 * self.tiles, dtype=torch.int32, device=self.device)
             return EncodedBatch(depths=depths, mins=mins, payload=payload, n64=n64)
-        offsets, total = word_offsets(depths)
-        payload = band.encode_payload(x, depths, mins, offsets)
-        return EncodedBatch(depths=depths, mins=mins, payload=payload, n64=total // 2)
+        payload, n64 = band.encode_payload(x, depths, mins)
+        return EncodedBatch(depths=depths, mins=mins, payload=payload, n64=n64)
 
     def encode_general(self, images) -> EncodedBatch:
         """Same as :meth:`encode` (there is no specialised variant to bypass)."""
@@ -189,8 +187,7 @@ class DbdeCodec:
         if all_depth8(depths):
             return band.decode_frames_u8(m, p, self.height, self.width)
         d = self._put(depths, torch.uint8)
-        offsets, _ = word_offsets(d)
-        return band.decode_frames(d, m, offsets, p, self.height, self.width)
+        return band.decode_frames(d, m, p, self.height, self.width)
 
     def materialize(self, pending: torch.Tensor) -> np.ndarray:
         """Pending decode → (B, H, W) u8 numpy (waits for the device)."""

@@ -1,14 +1,18 @@
 // The codec's main-path kernels for Hopper (sm_90a): encode phase A (per-tile
 // depth and minimum), encode phase B (bit-pack each tile into its place in
 // the frame's payload stream) and decode, and the uniform depth-8 pair of
-// encode phase B and decode that serve batches whose tiles are all depth 8.  Frames are contiguous (B, H, W) u8,
-// row-major, at any H and W; the payload is (B, S) u32 with frame b's stream
-// at words [b*S, b*S + 2*n64[b]).  Tile t of a frame is tile row t / w_tiles,
-// tile column t % w_tiles, as in the format.
+// encode phase B and decode that serve batches whose tiles are all depth 8.
+// Frames are contiguous (B, H, W) u8, row-major, at any H and W; the payload
+// is (B, S) u32 with frame b's stream at words [b*S, b*S + 2*n64[b]).  Tile t
+// of a frame is tile row t / w_tiles, tile column t % w_tiles, as in the
+// format.
 //
-// One thread owns one 8x8 tile; the grid is (ceil(T/256), B) with 256 threads
-// a block.  Neighbouring threads own neighbouring tiles of a tile row, so a
-// warp's row loads and stores cover one contiguous 256-byte run of the frame.
+// K1, K4 and K5: one thread owns one 8x8 tile; the grid is (ceil(T/256), B)
+// with 256 threads a block.  Neighbouring threads own neighbouring tiles of
+// a tile row, so a warp's row loads and stores cover one contiguous 256-byte
+// run of the frame.  K2 and K3: one block of 512 threads owns a chunk of
+// 1024 consecutive tiles of one frame, two a thread; the grid is
+// (ceil(T/1024), B).
 //
 // Each launcher is a plain C function bound with ctypes
 // (dbde_tpu_torch/ops/build.py): it launches on the caller's stream and
@@ -24,61 +28,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Load tile (ty, tx) of one frame.  Pixels past the frame's right or bottom
-// edge read at the clamped coordinates (min(y, H-1), min(x, W-1)): that is
-// exactly the format's right-then-down edge rule (ref_numpy.tile_image).
-// `vec` (W % 8 == 0 and an 8-byte-aligned base) allows one u64 load per row
-// of a tile that lies wholly inside the frame; otherwise byte loads.
-__device__ __forceinline__ void load_tile(const uint8_t* __restrict__ img, int H,
-                                          int W, int ty, int tx, int vec,
-                                          uint32_t tile[16]) {
-  const int y0 = 8 * ty, x0 = 8 * tx;
-  if (vec && y0 + 8 <= H) {
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const uint2 v =
-          *reinterpret_cast<const uint2*>(img + (size_t)(y0 + r) * W + x0);
-      tile[2 * r] = v.x;
-      tile[2 * r + 1] = v.y;
-    }
-    return;
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const uint8_t* row = img + (size_t)min(y0 + r, H - 1) * W;
-    uint32_t lo = 0u, hi = 0u;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      lo |= (uint32_t)row[min(x0 + c, W - 1)] << (8 * c);
-      hi |= (uint32_t)row[min(x0 + 4 + c, W - 1)] << (8 * c);
-    }
-    tile[2 * r] = lo;
-    tile[2 * r + 1] = hi;
-  }
-}
-
-// Store the in-frame part of tile (ty, tx); pixels past H or W are dropped.
-__device__ __forceinline__ void store_tile(uint8_t* __restrict__ img, int H, int W,
-                                           int ty, int tx, int vec,
-                                           const uint32_t tile[16]) {
-  const int y0 = 8 * ty, x0 = 8 * tx;
-  if (vec && y0 + 8 <= H) {
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      *reinterpret_cast<uint2*>(img + (size_t)(y0 + r) * W + x0) =
-          make_uint2(tile[2 * r], tile[2 * r + 1]);
-    return;
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    if (y0 + r >= H) break;
-    uint8_t* row = img + (size_t)(y0 + r) * W;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (x0 + c < W) row[x0 + c] = (uint8_t)dbde_pixel(tile, 8 * r + c);
-  }
-}
-
 // K1.  Replaces dbde_tpu/ops/pallas_band.py _depths_kernel (l.370, wrapper
 // encode_depths_kernel l.386).  Bound: one read of the frame (16 x 2048^2 u8
 // is 67 MB, about 20 us at 3.35 TB/s); the arithmetic is ~200 integer ops a
@@ -93,62 +42,208 @@ __global__ void __launch_bounds__(kThreads)
   if (t >= T) return;
   const int b = blockIdx.y;
   uint32_t tile[16];
-  load_tile(img + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
+  dbde_load_tile(img + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
   uint32_t depth, mn;
   dbde_tile_depth_min(tile, &depth, &mn);
   depths[(size_t)b * T + t] = (uint8_t)depth;
   mins[(size_t)b * T + t] = (uint8_t)mn;
 }
 
-// K2.  Replaces dbde_tpu/ops/pallas_band.py _payload_kernel (l.419, wrapper
-// encode_payload_kernel l.695) together with its in-kernel compaction
-// (binary-search inverse map and roll splice, kernel_common.py:91-368).
-// Bound: one more read of the frame and a write of at most its size.
-// Design: offsets come from a scan of 2*depth done before the launch, so
-// every tile stores its own 2*depth words straight at its offset -- no
-// search, no splice, no carry between blocks.  It writes nothing else: no
-// zero fill and no word past the tile's own 2*depth (the round-3 bug of the
-// TPU kernel, kernel_common.py:74-88).
-__global__ void __launch_bounds__(kThreads)
-    encode_payload_kernel(const uint8_t* __restrict__ img,
-                          const uint8_t* __restrict__ depths,
-                          const uint8_t* __restrict__ mins,
-                          const int32_t* __restrict__ offsets,
-                          uint32_t* __restrict__ payload, int H, int W, int w_tiles,
-                          int T, int S, int vec) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= T) return;
-  const int b = blockIdx.y;
-  const size_t bt = (size_t)b * T + t;
-  const uint32_t k = depths[bt];
-  if (k == 0u || k > 8u) return;
-  uint32_t tile[16];
-  load_tile(img + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
-  dbde_pack_store(tile, mins[bt], k, payload + (size_t)b * S + offsets[bt]);
+// K2 and K3 share their chunking: block (g, b) owns chunk g of frame b,
+// tiles g*1024 .. g*1024+1024, and its thread i the tiles g*1024+i and
+// g*1024+512+i (none, or only the first, past the frame's last tile), so a
+// warp's row loads and stores of one tile each cover 256 consecutive bytes
+// of the frame.  Each block finds its place in the frame's stream itself,
+// from the depths alone:
+//   - the words before the chunk, 2 * the sum of the frame's depths before
+//     it: read by all threads from L2 at 16 bytes a thread with __dp4a
+//     (dbde_sum_bytes, at any alignment of the frame's depth row), as K7
+//     does, then a warp reduction;
+//   - its tiles' places in the chunk: an exclusive scan of the words of
+//     each thread's two tiles (two warp-shuffle scans, then one step over
+//     the 16 warps' totals).
+// So no offsets tensor, no scan before the launch, no status words and no
+// order between blocks.  The cost is T^2/2048 bytes a frame read from L2
+// (2 MB at 2048^2, 32 MB at 4096^2).  Chosen by measurement over K6's
+// chained scan (a ticket, zeroed status words and a warp look-back), which
+// was no faster at 2048^2 or 4096^2 and took 1.5x as long on depth-8
+// content, whose stores load the memory system most (PERF.md).
+constexpr int kChunk = 1024;        // tiles a block
+constexpr int kChunkThreads = 512;  // two tiles a thread, 512 apart
+constexpr int kChunkWarps = kChunkThreads / 32;
+static_assert(2 * kChunkThreads == kChunk, "K2 and K3 give a thread two tiles");
+constexpr int kStageBytes = DBDE_STAGE_WORDS * (int)sizeof(uint32_t);  // 64 KB
+
+// The chunk's place in the frame's stream from the words w0 and w1 of the
+// thread's two tiles: returns the words before the chunk; off[0] and off[1]
+// are the tiles' first words within the chunk and *total the chunk's
+// words.  s_warp holds 3 * kChunkWarps words.  Synchronises once.
+__device__ __forceinline__ uint32_t chunk_place(const uint8_t* drow, int g, uint32_t w0,
+                                                uint32_t w1, uint32_t off[2],
+                                                uint32_t* total, uint32_t* s_warp) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t before = __reduce_add_sync(
+      0xFFFFFFFFu, dbde_sum_bytes(drow, (uint32_t)g * kChunk, tid, kChunkThreads));
+  uint32_t i0 = w0, i1 = w1;
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const uint32_t y0 = __shfl_up_sync(0xFFFFFFFFu, i0, k);
+    const uint32_t y1 = __shfl_up_sync(0xFFFFFFFFu, i1, k);
+    if (lane >= k) {
+      i0 += y0;
+      i1 += y1;
+    }
+  }
+  if (lane == 31) {
+    s_warp[warp] = i0;
+    s_warp[kChunkWarps + warp] = i1;
+  }
+  if (lane == 0) s_warp[2 * kChunkWarps + warp] = before;
+  __syncthreads();
+  uint32_t o0 = i0 - w0, o1 = i1 - w1, t0 = 0u, t1 = 0u, base = 0u;
+#pragma unroll
+  for (int w = 0; w < kChunkWarps; ++w) {
+    const uint32_t a = s_warp[w], c = s_warp[kChunkWarps + w];
+    o0 += w < warp ? a : 0u;
+    o1 += w < warp ? c : 0u;
+    t0 += a;
+    t1 += c;
+    base += s_warp[2 * kChunkWarps + w];
+  }
+  off[0] = o0;
+  off[1] = t0 + o1;
+  *total = t0 + t1;
+  return 2u * base;
 }
 
-// K3.  Replaces dbde_tpu/ops/pallas_band.py _decode_kernel (l.1308, wrappers
-// decode_band_kernel l.1575 and _decode_call l.1612).  Bound: a read of the
-// payload and a write of the frame.  Design: the TPU kernel gathers a
-// 16-word window for every tile and selects by depth; here each thread
-// reads only its tile's 2*depth words at its scanned offset, so garbage
-// after a tile's words or after 2*n64, and any stride S >= 2*n64, are never
-// seen.
-__global__ void __launch_bounds__(kThreads)
+// K2.  Replaces dbde_tpu/ops/pallas_band.py _payload_kernel (l.419, wrapper
+// encode_payload_kernel l.695) together with stream_meta (l.271), the XLA
+// scan that gives it its lane groups' starts.
+//
+// Bound: bytes.  One read of the frame, the depths and minima, and a write
+// of the live payload words and n64: at 16 x 2048^2 camera content about
+// 67 + 2 + 35 MB, 31 us at 3.35 TB/s.  The integer work, some 200
+// operations a tile, is under half of that at the card's INT32 rate.
+//
+// Design.  The TPU kernel packs a block's tiles into one VMEM staging value
+// at offsets it computes from its group starts and moves it with one DMA.
+// Here, one block of 512 threads a chunk of 1024 tiles:
+//   1. Each thread reads its two tiles' depths and minima (K1's output) and
+//      loads the tiles, 8-byte rows where the frame allows it, bytes with
+//      the edge rule otherwise (dbde_load_tile).  Each tile is read once.
+//   2. The chunk's place (chunk_place), its L2 reads under the tile loads.
+//   3. Every thread packs its tiles into a 64 KB shared stage at the local
+//      offsets with one code path for every depth (dbde_stage_tile, as K6).
+//   4. After one __syncthreads all threads copy the chunk's words from the
+//      stage to payload + b*S + base (dbde_copy_out): at most 3 scalar words
+//      up to a 16-byte boundary, 16-byte stores at consecutive addresses,
+//      at most 3 scalar words at the end.  A block writes only its own words
+//      -- blocks that share a 16-byte segment at a seam need no
+//      read-modify-write -- and nothing at or past 2*n64 is written.
+//   5. The frame's last chunk writes n64[b].
+// What this removes against a K2 that takes scanned offsets: the offsets
+// tensor and the four device operations of its scan (torch.cumsum, a cast,
+// a multiply and a subtract), and 2*depth scalar stores a tile at its own
+// offset, where a warp store touched up to 32 partial sectors.  Depths must
+// be K1's (0 to 8): a depth above 8 stages nothing but counts 2*depth words.
+// Occupancy: two blocks of 512 threads an SM (64 registers a thread, the
+// 64 KB stage), as K6.
+__global__ void __launch_bounds__(kChunkThreads, 2)
+    encode_payload_kernel(const uint8_t* __restrict__ img,
+                          const uint8_t* __restrict__ depths,
+                          const uint8_t* __restrict__ mins, uint32_t* __restrict__ payload,
+                          int32_t* __restrict__ n64, int H, int W, int w_tiles, int T, int S,
+                          int vec) {
+  extern __shared__ uint32_t stage[];  // DBDE_STAGE_WORDS
+  __shared__ uint32_t s_warp[3 * kChunkWarps];
+  const int tid = threadIdx.x, g = blockIdx.x, b = blockIdx.y;
+  const uint8_t* drow = depths + (size_t)b * T;
+
+  // 1. depths, minima and one read of each tile
+  const uint8_t* frame = img + (size_t)b * H * W;
+  uint32_t tile[2][16], d[2] = {0u, 0u}, m[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = g * kChunk + i * kChunkThreads + tid;
+    if (t < T) {
+      d[i] = drow[t];
+      m[i] = mins[(size_t)b * T + t];
+      dbde_load_tile(frame, H, W, t / w_tiles, t % w_tiles, vec, tile[i]);
+    }
+  }
+
+  // 2. the chunk's place
+  uint32_t off[2], total;
+  const uint32_t base = chunk_place(drow, g, 2u * d[0], 2u * d[1], off, &total, s_warp);
+
+  // 3. pack into the stage
+#pragma unroll
+  for (int i = 0; i < 2; ++i) dbde_stage_tile(tile[i], m[i], d[i], stage, off[i]);
+  __syncthreads();
+
+  // 4. the coalesced copy-out; 5. n64
+  dbde_copy_out(stage, total, payload + (size_t)b * S + base, tid, kChunkThreads);
+  if (tid == 0 && g == (int)gridDim.x - 1) n64[b] = (int32_t)((base + total) / 2u);
+}
+
+// K3.  Replaces dbde_tpu/ops/pallas_band.py _decode_kernel (l.1308,
+// wrappers decode_band_kernel l.1575 and _decode_call l.1612), which DMAs
+// its block's contiguous stream into VMEM and unpacks it there.
+//
+// Bound: bytes.  A read of the depths, minima and live payload words and a
+// write of the frame: at 16 x 2048^2 camera content about 2 + 35 + 67 MB,
+// 31 us at 3.35 TB/s.
+//
+// Design, K2's steps in reverse: the chunk's place [base, base + total)
+// (chunk_place); all threads copy those stream words into the 64 KB shared
+// stage with 16-byte loads at consecutive addresses and at most 3 scalar
+// words at each end (dbde_copy_in); after one __syncthreads each thread unpacks its two
+// tiles from the stage with one code path for every depth
+// (dbde_unstage_tile) and stores them, 8-byte rows where the frame allows
+// it (dbde_store_tile; pixels past H or W are dropped).  A block reads no
+// payload word outside [base, base + total), so any stride S >= 2*n64 and
+// garbage after the stream decode alike.  A corrupt depth map whose chunk
+// does not fit the stage or runs past word S takes each tile's words
+// straight from the payload instead, clamped at word S-1 as the plain
+// version's gather is (dbde_load_unpack).
+__global__ void __launch_bounds__(kChunkThreads, 2)
     decode_kernel(const uint8_t* __restrict__ depths, const uint8_t* __restrict__ mins,
-                  const int32_t* __restrict__ offsets,
-                  const uint32_t* __restrict__ payload, uint8_t* __restrict__ out,
-                  int H, int W, int w_tiles, int T, int S, int vec) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= T) return;
-  const int b = blockIdx.y;
-  const size_t bt = (size_t)b * T + t;
-  const uint32_t k = depths[bt], mn = mins[bt];
-  const int off = offsets[bt];
+                  const uint32_t* __restrict__ payload, uint8_t* __restrict__ out, int H,
+                  int W, int w_tiles, int T, int S, int vec) {
+  extern __shared__ uint32_t stage[];  // DBDE_STAGE_WORDS
+  __shared__ uint32_t s_warp[3 * kChunkWarps];
+  const int tid = threadIdx.x, g = blockIdx.x, b = blockIdx.y;
+  const uint8_t* drow = depths + (size_t)b * T;
+  uint32_t d[2] = {0u, 0u}, m[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = g * kChunk + i * kChunkThreads + tid;
+    if (t < T) {
+      d[i] = drow[t];
+      m[i] = mins[(size_t)b * T + t];
+    }
+  }
+  uint32_t off[2], total;
+  const uint32_t base = chunk_place(drow, g, 2u * d[0], 2u * d[1], off, &total, s_warp);
+
   const uint32_t* src = payload + (size_t)b * S;
-  uint32_t tile[16];
-  dbde_load_unpack(src, (uint32_t)off, (uint32_t)S, mn, k, tile);
-  store_tile(out + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
+  uint32_t tile[2][16];
+  if (total <= (uint32_t)DBDE_STAGE_WORDS && (uint64_t)base + total <= (uint64_t)S) {
+    dbde_copy_in(src + base, total, stage, tid, kChunkThreads);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) dbde_unstage_tile(stage, off[i], m[i], d[i], tile[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      dbde_load_unpack(src, base + off[i], (uint32_t)S, m[i], d[i], tile[i]);
+  }
+  uint8_t* frame = out + (size_t)b * H * W;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = g * kChunk + i * kChunkThreads + tid;
+    if (t < T) dbde_store_tile(frame, H, W, t / w_tiles, t % w_tiles, vec, tile[i]);
+  }
 }
 
 // Store or load a tile's 16 payload words: four 16-byte vectors when `pvec`
@@ -201,7 +296,7 @@ __global__ void __launch_bounds__(kThreads)
   if (t >= T) return;
   const int b = blockIdx.y;
   uint32_t tile[16], w[16];
-  load_tile(img + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
+  dbde_load_tile(img + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
   dbde_pack8(tile, mins[(size_t)b * T + t], w);
   store_words16(payload + (size_t)b * S + (size_t)16 * t, pvec, w);
 }
@@ -221,10 +316,30 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t w[16], tile[16];
   load_words16(payload + (size_t)b * S + (size_t)16 * t, pvec, w);
   dbde_unpack8(w, mins[(size_t)b * T + t], tile);
-  store_tile(out + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
+  dbde_store_tile(out + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
 }
 
 dim3 grid_for(int B, int T) { return dim3((unsigned)((T + kThreads - 1) / kThreads), (unsigned)B); }
+
+dim3 chunk_grid(int B, int T) { return dim3((unsigned)((T + kChunk - 1) / kChunk), (unsigned)B); }
+
+// The 64 KB stage is above the default 48 KB of dynamic shared memory:
+// raise the kernel's limit once per device (a repeat is harmless), as
+// dbde_encode_tiles does.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t allow_stage(Kernel kernel, bool configured[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && configured[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = true;
+  return err;
+}
 
 }  // namespace
 
@@ -239,22 +354,28 @@ int dbde_encode_depths(const void* img, void* depths, void* mins, int B, int H,
 }
 
 int dbde_encode_payload(const void* img, const void* depths, const void* mins,
-                        const void* offsets, void* payload, int B, int H, int W,
-                        int S, int vec, void* stream) {
+                        void* payload, void* n64, int B, int H, int W, int S, int vec,
+                        void* stream) {
   const int w_tiles = (W + 7) / 8, T = ((H + 7) / 8) * w_tiles;
-  encode_payload_kernel<<<grid_for(B, T), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)img, (const uint8_t*)depths, (const uint8_t*)mins,
-      (const int32_t*)offsets, (uint32_t*)payload, H, W, w_tiles, T, S, vec);
+  static bool configured[kMaxDevices];
+  const cudaError_t err = allow_stage(encode_payload_kernel, configured);
+  if (err != cudaSuccess) return (int)err;
+  encode_payload_kernel<<<chunk_grid(B, T), kChunkThreads, kStageBytes,
+                          (cudaStream_t)stream>>>(
+      (const uint8_t*)img, (const uint8_t*)depths, (const uint8_t*)mins, (uint32_t*)payload,
+      (int32_t*)n64, H, W, w_tiles, T, S, vec);
   return (int)cudaGetLastError();
 }
 
-int dbde_decode(const void* depths, const void* mins, const void* offsets,
-                const void* payload, void* out, int B, int H, int W, int S, int vec,
-                void* stream) {
+int dbde_decode(const void* depths, const void* mins, const void* payload, void* out, int B,
+                int H, int W, int S, int vec, void* stream) {
   const int w_tiles = (W + 7) / 8, T = ((H + 7) / 8) * w_tiles;
-  decode_kernel<<<grid_for(B, T), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)depths, (const uint8_t*)mins, (const int32_t*)offsets,
-      (const uint32_t*)payload, (uint8_t*)out, H, W, w_tiles, T, S, vec);
+  static bool configured[kMaxDevices];
+  const cudaError_t err = allow_stage(decode_kernel, configured);
+  if (err != cudaSuccess) return (int)err;
+  decode_kernel<<<chunk_grid(B, T), kChunkThreads, kStageBytes, (cudaStream_t)stream>>>(
+      (const uint8_t*)depths, (const uint8_t*)mins, (const uint32_t*)payload, (uint8_t*)out,
+      H, W, w_tiles, T, S, vec);
   return (int)cudaGetLastError();
 }
 

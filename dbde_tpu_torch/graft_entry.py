@@ -17,14 +17,13 @@ import torch
 from . import ref_numpy
 from .codec import resolve_device
 from .ops import band
-from .ops.payload import word_offsets
 from .parallel import iter_video_sharded, make_mesh, sharded_roundtrip_step, write_video_sharded
 
 
 def entry(device="cuda"):
     """→ (fn, example_args): ``fn(images)`` encodes then decodes a (B, H, W)
-    u8 batch through the band kernels, K1 (depths and minima), the scan, K2
-    (pack) and K3 (decode), and returns the (frames, n64) tensors on
+    u8 batch through the band kernels, K1 (depths and minima), K2 (pack)
+    and K3 (decode), and returns the (frames, n64) tensors on
     ``device``; the example is a (2, 512, 1024) batch of depth-6 content."""
     dev = resolve_device(device)
 
@@ -32,9 +31,8 @@ def entry(device="cuda"):
         x = torch.as_tensor(images, dtype=torch.uint8, device=dev).contiguous()
         H, W = x.shape[1:]
         depths, mins = band.encode_depths(x)
-        offsets, total = word_offsets(depths)
-        payload = band.encode_payload(x, depths, mins, offsets)
-        return band.decode_frames(depths, mins, offsets, payload, H, W), total // 2
+        payload, n64 = band.encode_payload(x, depths, mins)
+        return band.decode_frames(depths, mins, payload, H, W), n64
 
     rng = np.random.default_rng(0)
     example = (rng.integers(0, 64, size=(2, 512, 1024)) + 90).astype(np.uint8)

@@ -3,14 +3,15 @@
 Same two-phase pipeline as :mod:`dbde_tpu.ops`:
 
   encode:  tile → per-tile min/depth (kernel K1)
-           → exclusive prefix sum of per-tile word counts (``torch.cumsum``)
-           → pack every tile at its offset in the frame's stream (kernel K2)
-  decode:  offsets from the same prefix sum
-           → read each tile's words, unpack, add min, write rows (kernel K3)
+           → pack every tile at its place in the frame's stream (kernel K2,
+             which sums the depths before each block and scans its own)
+  decode:  the same places from the depths
+           → read each block's words, unpack, add min, write rows (kernel K3)
 
-A batch whose tiles are all depth 8 has a static stream layout (tile t at
-word 16*t): encode phase B and decode then need no scan and run the
-uniform pair instead, K4 (``encode_payload_u8``) and K5
+The plain versions find the places with an exclusive prefix sum of the
+per-tile word counts (``payload.word_offsets``).  A batch whose tiles are
+all depth 8 has a static stream layout (tile t at word 16*t): encode phase
+B and decode then need no depths and run the uniform pair instead, K4 (``encode_payload_u8``) and K5
 (``decode_frames_u8``).  :class:`dbde_tpu_torch.codec.DbdeCodec` chooses
 exactly, from the batch's depths.
 

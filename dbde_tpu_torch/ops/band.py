@@ -6,7 +6,9 @@ Counterpart of the main-path entry points of
 depth-8 pair ``encode_payload_u8_kernel`` / ``decode_band_u8_kernel``).  The kernels are CUDA
 C++ in ``csrc/dbde_kernels.cu``; they read and write u8 frames (B, H, W)
 directly at any width, so none of the TPU's row folding, u32 image layout
-or 1024-wide padding exists here.
+or 1024-wide padding exists here.  K2 and K3 find each tile's place in the
+frame's stream themselves, from the depths; only the plain versions scan
+(:func:`.payload.word_offsets`).
 
 Dispatch is by the device of the tensor given: a CPU tensor goes to the
 plain PyTorch version, a CUDA tensor to the kernel.  If the kernel fails to
@@ -23,7 +25,7 @@ from ..format import tile_grid
 from . import build
 from .bitpack import MAX_WORDS_PER_TILE, pack_words, tile_depths_mins, unpack_words_to_tiles
 from .launch import LAUNCHES, check, cuda_batch, launch, reset_launches  # noqa: F401
-from .payload import compact_payload, gather_windows
+from .payload import compact_payload, gather_windows, word_offsets
 from .tiling import pad_and_tile, untile
 
 
@@ -36,16 +38,19 @@ def encode_depths_plain(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
     return depth.to(torch.uint8), mn
 
 
-def encode_payload_plain(images, depths, mins, offsets, out=None) -> torch.Tensor:
+def encode_payload_plain(images, depths, mins, out=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Pack every tile at its depth and store its ``2*depth`` words at its
-    offset in ``out`` (B, S) u32 (default: zeroed (B, 16*T))."""
+    place in the frame's stream, the exclusive scan of ``2*depths``, in
+    ``out`` (B, S) u32 (default: zeroed (B, 16*T)).  Returns (payload, n64
+    (B,) i32)."""
+    offsets, total = word_offsets(depths)
     words = pack_words(pad_and_tile(images), depths, mins)
-    return compact_payload(words, depths, offsets, out)
+    return compact_payload(words, depths, offsets, out), total // 2
 
 
-def decode_frames_plain(depths, mins, offsets, payload, H: int, W: int) -> torch.Tensor:
-    """(depths, mins (B, T) u8, offsets (B, T) i32, payload (B, S) u32) →
-    (B, H, W) u8 frames."""
+def decode_frames_plain(depths, mins, payload, H: int, W: int) -> torch.Tensor:
+    """(depths, mins (B, T) u8, payload (B, S) u32) → (B, H, W) u8 frames."""
+    offsets, _ = word_offsets(depths)
     tiles = unpack_words_to_tiles(depths, mins, gather_windows(payload, offsets))
     return untile(tiles, H, W)
 
@@ -111,48 +116,48 @@ def encode_depths(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def encode_payload(images: torch.Tensor, depths: torch.Tensor, mins: torch.Tensor,
-                   offsets: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+                   out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode phase B: pack each tile and store its ``2*depth`` u32 words at
-    ``out[b, offsets[b, t]:]``.  ``offsets`` is the exclusive scan of
-    ``2*depths`` (:func:`..payload.word_offsets`).  ``out`` is (B, S) u32
-    with S ≥ 16*T; the default is uninitialised (B, 16*T).  Words at or
-    past ``2*n64`` of each frame are left as they were.
+    its place in the frame's stream, which the kernel finds from ``depths``
+    (K1's, 0 to 8).  ``out`` is (B, S) u32 with S ≥ 16*T; the default is
+    uninitialised (B, 16*T).  Words at or past ``2*n64`` of each frame are
+    left as they were.  Returns (payload, n64 (B,) i32).
     Kernel: ``dbde_encode_payload``."""
     if images.device.type == "cpu":
-        return encode_payload_plain(images, depths, mins, offsets, out)
+        return encode_payload_plain(images, depths, mins, out)
     B, H, W = images.shape
     dev = images.device
     T = _cuda_tiles(dev, B, H, W)
     check("images", images, torch.uint8, (B, H, W), dev)
     check("depths", depths, torch.uint8, (B, T), dev)
     check("mins", mins, torch.uint8, (B, T), dev)
-    check("offsets", offsets, torch.int32, (B, T), dev)
     if out is None:
         out = torch.empty((B, T * MAX_WORDS_PER_TILE), dtype=torch.uint32, device=dev)
     elif out.ndim != 2 or out.shape[1] < T * MAX_WORDS_PER_TILE:
         raise ValueError(f"out must be (B, S) with S >= {T * MAX_WORDS_PER_TILE}, got {tuple(out.shape)}")
     check("out", out, torch.uint32, (B, out.shape[1]), dev)
+    n64 = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
         lib = build.load()
         launch("encode_payload", lib.dbde_encode_payload, dev,
-               images.data_ptr(), depths.data_ptr(), mins.data_ptr(), offsets.data_ptr(),
-               out.data_ptr(), B, H, W, out.shape[1], _vec(images, W))
-    return out
+               images.data_ptr(), depths.data_ptr(), mins.data_ptr(), out.data_ptr(),
+               n64.data_ptr(), B, H, W, out.shape[1], _vec(images, W))
+    return out, n64
 
 
-def decode_frames(depths: torch.Tensor, mins: torch.Tensor, offsets: torch.Tensor,
-                  payload: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """Decode: (depths, mins (B, T) u8, offsets (B, T) i32, payload (B, S)
-    u32 with S ≥ 2*n64) → (B, H, W) u8 frames.  Reads only each tile's
-    ``2*depth`` words.  Kernel: ``dbde_decode``."""
+def decode_frames(depths: torch.Tensor, mins: torch.Tensor, payload: torch.Tensor,
+                  H: int, W: int) -> torch.Tensor:
+    """Decode: (depths, mins (B, T) u8, payload (B, S) u32 with S ≥ 2*n64)
+    → (B, H, W) u8 frames.  Reads no payload word past a frame's stream
+    (``2*n64``, twice the sum of its depths), and none at or past S.
+    Kernel: ``dbde_decode``."""
     if depths.device.type == "cpu":
-        return decode_frames_plain(depths, mins, offsets, payload, H, W)
+        return decode_frames_plain(depths, mins, payload, H, W)
     B = depths.shape[0]
     dev = depths.device
     T = _cuda_tiles(dev, B, H, W)
     check("depths", depths, torch.uint8, (B, T), dev)
     check("mins", mins, torch.uint8, (B, T), dev)
-    check("offsets", offsets, torch.int32, (B, T), dev)
     if payload.ndim != 2 or payload.shape[1] < 1:
         raise ValueError(f"payload must be (B, S) with S >= 1, got {tuple(payload.shape)}")
     check("payload", payload, torch.uint32, (B, payload.shape[1]), dev)
@@ -160,8 +165,8 @@ def decode_frames(depths: torch.Tensor, mins: torch.Tensor, offsets: torch.Tenso
     if B:
         lib = build.load()
         launch("decode", lib.dbde_decode, dev,
-               depths.data_ptr(), mins.data_ptr(), offsets.data_ptr(), payload.data_ptr(),
-               out.data_ptr(), B, H, W, payload.shape[1], _vec(out, W))
+               depths.data_ptr(), mins.data_ptr(), payload.data_ptr(), out.data_ptr(),
+               B, H, W, payload.shape[1], _vec(out, W))
     return out
 
 

@@ -111,7 +111,7 @@ def load() -> ctypes.CDLL:
             signatures = {
                 "dbde_encode_depths": [P, P, P, I, I, I, I, P],
                 "dbde_encode_payload": [P, P, P, P, P, I, I, I, I, I, P],
-                "dbde_decode": [P, P, P, P, P, I, I, I, I, I, P],
+                "dbde_decode": [P, P, P, P, I, I, I, I, I, P],
                 "dbde_encode_payload_u8": [P, P, P, I, I, I, I, I, I, P],
                 "dbde_decode_u8": [P, P, P, I, I, I, I, I, I, P],
                 "dbde_encode_tiles": [P, P, P, P, P, P, I, I, I, I, P],

@@ -4,7 +4,7 @@
         [--height 2048] [--width 2048] [--backend band|tiles]
 
 Needs a CUDA GPU.  For camera content (band backend, mixed depths: K1,
-scan, K2 / scan, K3) and random content (every tile depth 8: K1, K4 /
+K2 / K3) and random content (every tile depth 8: K1, K4 /
 K5; the tiles backend runs its layout transform and K6 / K7 on both),
 runs ``DbdeCodec.encode`` and ``DbdeCodec.decode_dispatch`` ``iters``
 times each under ``torch.profiler`` and prints, per path, every device

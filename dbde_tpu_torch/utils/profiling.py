@@ -84,23 +84,29 @@ def idle_share(intervals) -> tuple[float, float, float]:
     return busy, span, 1.0 - busy / span
 
 
+PROFILE_SESSIONS = 3  # profiler sessions a measurement may take
+
+
 def measure_device_seconds(fn, reps: int = 4) -> float:
     """Device busy seconds per call of ``fn()``: one warm-up call, then
     ``reps`` calls under ``torch.profiler``; the union of the device
-    activities' intervals over ``reps``.  Raises when the profiler saw no
-    device activity."""
+    activities' intervals over ``reps``.  A session that delivers no device
+    activity is run again, up to :data:`PROFILE_SESSIONS` in all (on an
+    H100, torch 2.11, about one process in four had a session whose device
+    records never arrived); raises when none delivers any."""
     _require_cuda()
     fn()
     torch.cuda.synchronize()
-    # the host activity stays on although only device events are read: on
-    # an H100 (torch 2.11), a device-only session in a process that had
-    # already profiled both recorded no device activity at all
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    intervals = device_intervals(prof)
-    if not intervals:
-        raise RuntimeError("the profiler saw no device activity")
-    busy, _, _ = idle_share(intervals)
-    return busy / reps / 1e6
+    for _ in range(PROFILE_SESSIONS):
+        # the host activity stays on although only device events are read:
+        # on an H100 (torch 2.11), a device-only session in a process that
+        # had already profiled both recorded no device activity at all
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        intervals = device_intervals(prof)
+        if intervals:
+            busy, _, _ = idle_share(intervals)
+            return busy / reps / 1e6
+    raise RuntimeError(f"the profiler saw no device activity in {PROFILE_SESSIONS} sessions")

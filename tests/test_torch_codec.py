@@ -278,16 +278,45 @@ def test_uniform_batch_takes_the_u8_pair(calls):
 def test_uniform_pair_matches_general_pair():
     """On all-depth-8 content the uniform pair's payload is the general
     pair's word for word, and each pair decodes the other's."""
-    from dbde_tpu_torch.ops import band, word_offsets
+    from dbde_tpu_torch.ops import band
 
     x = torch.from_numpy(np.stack([_uniform_depth_frame(8, 21, 43)] * 3))
     d, m = band.encode_depths(x)
-    off, total = word_offsets(d)
-    general = band.encode_payload(x, d, m, off)
+    general, n64 = band.encode_payload(x, d, m)
     uniform = band.encode_payload_u8(x, m)
+    assert n64.tolist() == [8 * d.shape[1]] * 3
     assert torch.equal(general.view(torch.int32), uniform.view(torch.int32))
     assert torch.equal(band.decode_frames_u8(m, general, 21, 43), x)
-    assert torch.equal(band.decode_frames(d, m, off, uniform, 21, 43), x)
+    assert torch.equal(band.decode_frames(d, m, uniform, 21, 43), x)
+
+
+def test_band_codec_scans_only_in_the_plain_versions(monkeypatch):
+    """On the CPU the band codec and graft_entry's step reach word_offsets
+    (the scan the kernels do without) only through the plain versions of
+    K2 and K3; codec.py and graft_entry.py do not name it."""
+    import inspect
+
+    from dbde_tpu_torch import codec as codec_module
+    from dbde_tpu_torch import graft_entry
+    from dbde_tpu_torch.ops import band
+
+    callers, scan = [], band.word_offsets
+
+    def spy(depths):
+        callers.append(inspect.stack()[1].function)
+        return scan(depths)
+
+    monkeypatch.setattr(band, "word_offsets", spy)
+    _check_against_oracle(make_adversarial(43, 21, 2, maxd=8, seed=3))
+    assert callers == ["encode_payload_plain", "decode_frames_plain"]
+    fn, (example,) = graft_entry.entry("cpu")
+    frames, n64 = fn(example[:, :16, :40])
+    assert torch.equal(frames, torch.from_numpy(example[:, :16, :40]))
+    assert n64.tolist() == [int(ref.tile_depths_mins(ref.tile_image(f))[0].astype(np.int64).sum())
+                            for f in example[:, :16, :40]]
+    assert callers[2:] == ["encode_payload_plain", "decode_frames_plain"]
+    for module in (codec_module, graft_entry):
+        assert "word_offsets" not in inspect.getsource(module)
 
 
 def test_uniform_decode_garbage_after_the_stream():

@@ -17,6 +17,7 @@ from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_IMAGE, README_10x10_IMAGE
 from dbde_tpu_torch import read_video, write_video
 from dbde_tpu_torch.codec import DbdeCodec, pack_frames_bytes
 from dbde_tpu_torch.ops import band, tile_layout, word_offsets
+from torch.profiler import ProfilerActivity, profile
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -58,21 +59,24 @@ def test_kernels_match_plain(cuda, name):
     torch.cuda.synchronize()
     assert torch.equal(d, dp) and torch.equal(m, mp)
 
-    offsets, total = word_offsets(d)
-    n64 = (total // 2).cpu().numpy()
-    fill = np.full((B, 16 * d.shape[1]), SENTINEL, np.uint32)
-    pk = band.encode_payload(x, d, m, offsets, out=torch.from_numpy(fill.copy()).to(cuda))
-    pp = band.encode_payload_plain(x, d, m, offsets, out=torch.from_numpy(fill).to(cuda))
-    torch.cuda.synchronize()
-    got, want = _u32(pk), _u32(pp)
-    np.testing.assert_array_equal(got, want)
-    for b in range(B):
-        assert (got[b, 2 * n64[b]:] == SENTINEL).all()
+    _, total = word_offsets(d)
+    T = d.shape[1]
+    for S in (16 * T + 1, 16 * T):  # rows off and on the 16-byte grid
+        fill = np.full((B, S), SENTINEL, np.uint32)
+        pk, nk = band.encode_payload(x, d, m, out=torch.from_numpy(fill.copy()).to(cuda))
+        pp, np_ = band.encode_payload_plain(x, d, m, out=torch.from_numpy(fill).to(cuda))
+        torch.cuda.synchronize()
+        got, want = _u32(pk), _u32(pp)
+        np.testing.assert_array_equal(got, want)
+        assert torch.equal(nk, np_) and torch.equal(nk, total // 2)
+        n64 = nk.cpu().numpy()
+        for b in range(B):
+            assert (got[b, 2 * n64[b]:] == SENTINEL).all()
 
-    out = band.decode_frames(d, m, offsets, pk, H, W)
-    torch.cuda.synchronize()
-    assert torch.equal(out, band.decode_frames_plain(d, m, offsets, pk, H, W))
-    np.testing.assert_array_equal(out.cpu().numpy(), frames)
+        out = band.decode_frames(d, m, pk, H, W)
+        torch.cuda.synchronize()
+        assert torch.equal(out, band.decode_frames_plain(d, m, pk, H, W))
+        np.testing.assert_array_equal(out.cpu().numpy(), frames)
 
     # shortest legal stride, random garbage after each frame's stream
     S = max(2 * int(n64.max()), 1)
@@ -80,9 +84,9 @@ def test_kernels_match_plain(cuda, name):
     for b in range(B):
         short[b, : 2 * n64[b]] = got[b, : 2 * n64[b]]
     sp = torch.from_numpy(short).to(cuda)
-    out = band.decode_frames(d, m, offsets, sp, H, W)
+    out = band.decode_frames(d, m, sp, H, W)
     torch.cuda.synchronize()
-    assert torch.equal(out, band.decode_frames_plain(d, m, offsets, sp, H, W))
+    assert torch.equal(out, band.decode_frames_plain(d, m, sp, H, W))
     np.testing.assert_array_equal(out.cpu().numpy(), frames)
 
     # the uniform pair, at any content: 16-byte path (default buffer) and
@@ -113,11 +117,10 @@ def test_unaligned_frames_take_the_byte_path(cuda):
     x = buf[1:].view(frames.shape)
     x.copy_(torch.from_numpy(frames))
     d, m = band.encode_depths(x)
-    offsets, _ = word_offsets(d)
-    p = band.encode_payload(x, d, m, offsets)
+    p, _ = band.encode_payload(x, d, m)
     torch.cuda.synchronize()
     assert torch.equal(d, band.encode_depths_plain(x)[0])
-    assert torch.equal(band.decode_frames(d, m, offsets, p, 16, 64).cpu(), x.cpu())
+    assert torch.equal(band.decode_frames(d, m, p, 16, 64).cpu(), x.cpu())
 
 
 def test_main_path_launches_every_kernel(cuda, tmp_path):
@@ -131,6 +134,26 @@ def test_main_path_launches_every_kernel(cuda, tmp_path):
     assert band.LAUNCHES == {"encode_depths": 3, "encode_payload": 2, "decode": 2,
                              "encode_payload_u8": 1, "decode_u8": 1,
                              "encode_tiles": 0, "decode_tiles": 0}
+
+
+def test_band_path_launches_no_cumsum(cuda):
+    """The band encode and decode of a mixed batch run K1, K2 and K3 and no
+    scan: the profiler (host and device activities) sees no cumsum."""
+    frames = make_content(72, 40, 3)
+    codec = DbdeCodec(40, 72, device=cuda)
+    enc = codec.encode(frames)  # warm-up: the library is loaded
+    torch.cuda.synchronize()
+    band.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        enc = codec.encode(frames)
+        out = codec.decode(enc.depths, enc.mins, enc.payload)
+        torch.cuda.synchronize()
+    np.testing.assert_array_equal(out, frames)
+    assert {k: v for k, v in band.LAUNCHES.items() if v} == {
+        "encode_depths": 1, "encode_payload": 1, "decode": 1}
+    names = [e.key for e in prof.key_averages()]
+    assert any("encode_payload_kernel" in n for n in names), names
+    assert not any("cumsum" in n.lower() for n in names), names
 
 
 def test_launch_leaves_the_current_device(cuda):
@@ -167,8 +190,7 @@ def test_wrappers_reject_bad_tensors(cuda):
         band.encode_depths(x)
     d = torch.zeros((1, 1), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
-        band.decode_frames(d, d, torch.zeros((1, 1), dtype=torch.int64, device=cuda),
-                           torch.zeros((1, 16), dtype=torch.uint32, device=cuda), 8, 8)
+        band.decode_frames(d, d, torch.zeros((1, 16), dtype=torch.int64, device=cuda), 8, 8)
 
 
 # and K6's full 64 KB stage: every tile depth 8, 1023 real tiles in the last block
@@ -186,9 +208,9 @@ def test_tiles_kernels_match_plain(cuda, name):
     x = torch.from_numpy(np.ascontiguousarray(frames)).to(cuda)
     d, m = band.encode_depths(x)
     T = d.shape[1]
-    offsets, total = word_offsets(d)
+    _, total = word_offsets(d)
     fill = np.full((B, 16 * T), SENTINEL, np.uint32)
-    p2 = band.encode_payload(x, d, m, offsets, out=torch.from_numpy(fill.copy()).to(cuda))
+    p2, _ = band.encode_payload(x, d, m, out=torch.from_numpy(fill.copy()).to(cuda))
     tw = tile_layout.image_to_tiles_w(x)
     got = tile_layout.encode_tiles(tw, T, out=torch.from_numpy(fill.copy()).to(cuda))
     want = tile_layout.encode_tiles_plain(tw, T, out=torch.from_numpy(fill).to(cuda))

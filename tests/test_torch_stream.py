@@ -280,3 +280,23 @@ def test_kernel_bound_counts_the_bytes():
     assert abs(ms - nbytes / 3.35e9) < 1e-9
     _, _, nbytes6, _ = smoke.kernel_bound("encode_tiles", frames, 1000)
     assert nbytes6 == 66 * 16 * 65536 + 8 * 1000 + 4 * 16
+    # K2 and K3 take no offsets: frames, depths and minima, the live
+    # payload, and K2's n64
+    _, _, nbytes2, _ = smoke.kernel_bound("encode_payload", frames, 1000)
+    _, _, nbytes3, _ = smoke.kernel_bound("decode", frames, 1000)
+    assert nbytes2 == 16 * 2048 * 2048 + 2 * 16 * 65536 + 8 * 1000 + 4 * 16
+    assert nbytes3 == 16 * 2048 * 2048 + 2 * 16 * 65536 + 8 * 1000
+
+
+def test_chip_smoke_band_sizes_on_cpu(monkeypatch):
+    """Phase 4's K2 and K3 at other frame sizes run (once, untimed) on the
+    plain versions, after their round-trip check; the depth bytes their
+    blocks read for the sums of the earlier depths: chunk g reads g*1024."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "_time_ms", lambda fn, iters: (fn(), 1.0)[1])
+    runs = make_depth_runs(20000, 8, 2, seed=3)  # T 2500: chunks 0, 1 and 2
+    sizes = [("camera", make_content(40, 24, 2)), ("runs", runs)]
+    assert smoke.time_band_sizes(torch.device("cpu"), sizes) == dict.fromkeys(
+        ("camera", "runs"), {"encode_payload": 1.0, "decode": 1.0})
+    assert smoke.prefix_bytes(runs) == 2 * (1024 + 2048)
+    assert smoke.prefix_bytes(np.zeros((2, 4096, 4096), np.uint8)) == 2 * 1024 * 256 * 255 // 2

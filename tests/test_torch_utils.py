@@ -266,3 +266,29 @@ def test_card_name_finds_the_card_by_uuid(monkeypatch):
     uuids[0] = "3333cccc-0000-0000-0000-000000000003"
     with pytest.raises(RuntimeError, match="no card with UUID"):
         profiling.card_name(0)
+
+
+@pytest.mark.parametrize("empty, want", [(0, 2e-6), (2, 2e-6), (3, None)])
+def test_measure_device_seconds_profiles_again_when_no_device_record_arrives(
+        monkeypatch, empty, want):
+    """A profiler session that delivers no device activity is run again, up
+    to PROFILE_SESSIONS in all; with none delivering any, the measure
+    raises.  (Timers stubbed: the sessions themselves need a GPU.)"""
+    import contextlib
+
+    sessions = []
+
+    def intervals(prof):
+        sessions.append(prof)
+        return [] if len(sessions) <= empty else [("k", 0.0, 8.0)]
+
+    monkeypatch.setattr(profiling, "_require_cuda", lambda: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(profiling, "profile", lambda activities: contextlib.nullcontext("prof"))
+    monkeypatch.setattr(profiling, "device_intervals", intervals)
+    if want is None:
+        with pytest.raises(RuntimeError, match="no device activity in 3 sessions"):
+            profiling.measure_device_seconds(lambda: None, reps=4)
+    else:
+        assert profiling.measure_device_seconds(lambda: None, reps=4) == want
+    assert len(sessions) == min(empty + 1, profiling.PROFILE_SESSIONS)
