@@ -13,8 +13,14 @@ Phases, one line each, in order:
      block-seam geometries: K1 encode_depths, K2 encode_payload, K3
      decode, the uniform depth-8 pair K4 encode_payload_u8 and K5
      decode_u8, and the tiles backend's K6 encode_tiles and K7
-     decode_tiles.  K2, K4 and K6 must leave every word past their own
-     untouched; K2's n64 must be the scan's (word_offsets), also into rows
+     decode_tiles.  K1's batch flag ("mixed": some tile not depth 8) must
+     be its plain version's; K2 to K5 pass their gate cases (launched alone
+     with the flag set against them, into sentinel-filled outputs, they
+     write nothing; with it set for them they equal their plain versions,
+     K4 writing n64 = 8*T); DbdeCodec.encode, where K1's flag picks K2 or
+     K4 on the card, gives K2's stream.  K2, K4 and K6 must leave every
+     word past their own untouched; K2's n64 must be the scan's
+     (word_offsets), also into rows
      off the 16-byte grid (stride 16*T + 1); K3, K5 and K7 must decode from
      payloads with garbage after each frame's stream, K3 also from those
      rows; where every tile is depth 8 K4's payload must equal K2's; K6's
@@ -24,12 +30,25 @@ Phases, one line each, in order:
      equal to the first and to the plain version's
   3  the main path: write_video then read_video of 64 2048² camera frames
      and 16 2048² random frames (every tile depth 8) in batches of 16,
-     bit-exact, first records byte-equal to the numpy oracle, each camera
-     batch through K1/K2/K3 and the random batch through K1/K4/K5
+     bit-exact, first records byte-equal to the numpy oracle, each batch's
+     encode launching K1, K2 and K4 (one of K2, K4 writing, chosen on the
+     card) and its decode K3, or K5 for the random batch; then
+     DbdeWriter/DbdeReader at pipeline 2, 1, 1, 2 on the same frames
+     (files equal, reads bit-exact, frames/s each), and the host-clock
+     split of one instrumented pass into stage, parse, h2d, kernels, d2h
+     and write
   3b the tiles backend: DbdeCodec(backend="tiles") encode → record bytes →
      parse → decode of 16 2048² camera and 16 random frames, bit-exact,
      records equal to the band backend's and the first to the numpy
      oracle's, one K6 and one K7 a batch
+  3c the sync check: behind a device sleep of about a second, under
+     torch.cuda.set_sync_debug_mode("error") and a log of every copy
+     between host and device, DbdeCodec.encode of camera, all-depth-8
+     and mixed batches, decode_dispatch from a DbdeReader's pooled slots
+     and two DbdeWriter.write at pipeline 2 raise nothing, return while the
+     device still sleeps, and copy only non_blocking from or into pinned
+     memory; a blocking .to(device) of a pageable array does raise; the
+     results equal K2's stream, the frames and the codec's records
   4  timing with CUDA events: each kernel and the encode/decode paths of
      both backends against their plain versions at 16×2048² camera and
      random content, each kernel beside its bound; K2 on the random
@@ -47,8 +66,8 @@ Phases, one line each, in order:
      (34 tile rows a band) to the numpy oracle's bytes and decodes them;
      sharded_roundtrip_step on the 2×2 mesh with the single-device n64;
      graft_entry.dryrun_multichip(8) and graft_entry.entry(); the sharded
-     and single-device write and read times, and the shard encodes with and
-     without the per-shard depth-8 read-back
+     and single-device write and read times, and the shard encodes through
+     DbdeCodec.encode beside K1 + K2 alone
   6  the CLI on the card, driven in-process through dbde_tpu_torch.cli.main:
      golden (3 frames), info --scan and decode against GOLDEN_8x16_IMAGE;
      at the five geometries of tools/tpu_quickcheck.py (2048² camera and
@@ -58,9 +77,11 @@ Phases, one line each, in order:
      predicts; decode --pgm-dir and preview (one frame's decode) on the
      3072×64 file; `python -m dbde_tpu_torch.cli info` as a subprocess
      that imports no jax (on another core meanwhile); then bench in its
-     six modes at its defaults (8 frames of 2048²), each JSON line beside
-     the card's name and power limit.  Phase 1 starts torch.profiler once,
-     timed on its own, so that the first bench does not pay for it
+     six modes at its defaults (8 frames of 2048²; --stream and --composed
+     at 64 frames), each JSON line beside the card's name and power limit,
+     and python -m dbde_tpu_torch.bench (bench.py's keys).  The phase
+     first starts torch.profiler once, timed on its own, so that the first
+     bench does not pay for it
 
 Any failure raises, so the script exits non-zero without the final line.
 Phase 5's and phase 6's launch counts are lines of their own; then a line
@@ -70,8 +91,10 @@ lists the kernels as JSON (launches from phases 3 and 3b); the last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import filecmp
+import hashlib
 import io
 import json
 import os
@@ -82,22 +105,28 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-from dbde_tpu_torch import cli, graft_entry, read_video, ref_numpy, write_video
+from dbde_tpu_torch import (DbdeReader, DbdeWriter, cli, graft_entry, read_video, ref_numpy,
+                            write_video)
+from dbde_tpu_torch import bench as port_bench
 from dbde_tpu_torch.bench_core import make_adversarial, make_content, make_depth_runs
 from dbde_tpu_torch.codec import (
     DbdeCodec,
     EncodedBatch,
+    HostCopy,
     all_depth8,
     pack_frames_bytes,
+    record_iovecs,
     unpack_frames_bytes,
 )
-from dbde_tpu_torch.format import VIDEO_HEADER_BYTES, tile_grid
+from dbde_tpu_torch.format import VIDEO_HEADER_BYTES, VideoHeader, tile_grid
 from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_IMAGE, README_10x10_IMAGE
 from dbde_tpu_torch.native import binding as native_binding
 from dbde_tpu_torch.ops import band, tile_layout
 from dbde_tpu_torch.ops.build import build
 from dbde_tpu_torch.ops.payload import word_offsets
+from dbde_tpu_torch.stream import _GatedPool, _writev_all
 from dbde_tpu_torch.parallel import (
     assemble_payload_host,
     decode_sharded,
@@ -163,22 +192,83 @@ def _sentinels(B: int, S: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.full((B, S), SENTINEL, np.uint32)).to(device)
 
 
+def _flag(value: int, device: torch.device) -> torch.Tensor:
+    """A batch flag ("mixed": nonzero iff some tile is not depth 8) set by hand."""
+    return torch.full((1,), value, dtype=torch.int32, device=device)
+
+
+def check_gates(label: str, x: torch.Tensor, d: torch.Tensor, m: torch.Tensor,
+                pk: torch.Tensor, pk4: torch.Tensor) -> dict[str, int]:
+    """Phase 2, the gates of K2, K3, K4 and K5 on frames ``x`` with K1's
+    depths and minima and K2's and K4's payloads.  Each gated kernel is
+    launched alone, into an output filled with sentinels, with the batch
+    flag set against it: every sentinel must stay (K2 and K4 also leave
+    n64).  Launched with the flag set for it, it must equal its plain
+    version with the same flag (K4 also writing n64 = 8*T).  Bytes cannot
+    show which kernel of a pair ran, since K2 writes K4's words on an
+    all-depth-8 batch: this can.  Returns |kernel - plain| per kernel."""
+    B, H, W = x.shape
+    T = d.shape[1]
+    dev = x.device
+    on, off = _flag(1, dev), _flag(0, dev)  # selects K2/K3, selects K4/K5
+    no_n64 = torch.full((B,), -7, dtype=torch.int32, device=dev)
+    fill = torch.full((B, H, W), 0xA5, dtype=torch.uint8, device=dev)
+    against = {
+        "encode_payload": lambda o, n: band.encode_payload(x, d, m, out=o, n64=n, mixed=off),
+        "encode_payload_u8": lambda o, n: band.encode_payload_u8(x, m, out=o, n64=n, mixed=on),
+    }
+    for key, fn in against.items():
+        out, n64 = _sentinels(B, 16 * T, dev), no_n64.clone()
+        fn(out, n64)
+        _sync(dev)
+        _require(bool((out.cpu().numpy() == SENTINEL).all()) and torch.equal(n64, no_n64),
+                 f"{label}: {key} wrote with the flag set against it")
+    for key, fn in (("decode", lambda o: band.decode_frames(d, m, pk, H, W, out=o, mixed=off)),
+                    ("decode_u8", lambda o: band.decode_frames_u8(m, pk4, H, W, out=o, mixed=on))):
+        out = fill.clone()
+        fn(out)
+        _sync(dev)
+        _require(torch.equal(out, fill), f"{label}: {key} wrote with the flag set against it")
+
+    k2, n2 = band.encode_payload(x, d, m, out=_sentinels(B, 16 * T, dev), mixed=on)
+    p2, pn2 = band.encode_payload_plain(x, d, m, out=_sentinels(B, 16 * T, dev), mixed=on)
+    n4 = no_n64.clone()
+    k4 = band.encode_payload_u8(x, m, out=_sentinels(B, 16 * T, dev), n64=n4, mixed=off)
+    pn4 = no_n64.clone()
+    p4 = band.encode_payload_u8_plain(x, m, out=_sentinels(B, 16 * T, dev), n64=pn4, mixed=off)
+    k3 = band.decode_frames(d, m, pk, H, W, out=fill.clone(), mixed=on)
+    p3 = band.decode_frames_plain(d, m, pk, H, W, out=fill.clone(), mixed=on)
+    k5 = band.decode_frames_u8(m, pk4, H, W, out=fill.clone(), mixed=off)
+    p5 = band.decode_frames_u8_plain(m, pk4, H, W, out=fill.clone(), mixed=off)
+    _sync(dev)
+    _require(n4.cpu().tolist() == [8 * T] * B and torch.equal(k3, x) and torch.equal(k5, x),
+             f"{label}: a kernel with the flag set for it did not do its work")
+    return {"encode_payload": max(_max_err(k2, p2), _max_err(n2, pn2)),
+            "encode_payload_u8": max(_max_err(k4, p4), _max_err(n4, pn4)),
+            "decode": _max_err(k3, p3), "decode_u8": _max_err(k5, p5)}
+
+
 def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, int]:
     """Phase 2: every kernel against its plain version on ``device``.
 
     ``geometries`` is a list of (label, (B, H, W) u8 numpy frames).  Returns
     the largest |kernel - plain| per kernel over all of them; raises unless
-    each is within TOLERANCE and the frames round-trip exactly.
+    each is within TOLERANCE and the frames round-trip exactly.  K1's batch
+    flag is held against its plain version's, K2 to K5 also pass their
+    gate cases (:func:`check_gates`), and ``DbdeCodec.encode`` (K1's flag
+    choosing between K2 and K4 on the device) must give K2's stream and n64.
     """
     rng = np.random.default_rng(seed)
     errs = dict.fromkeys(band.LAUNCHES, 0)
     for label, frames in geometries:
         B, H, W = frames.shape
         x = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
-        d, m = band.encode_depths(x)
-        dp, mp = band.encode_depths_plain(x)
+        flag, flag_p = _flag(-1, device), _flag(-1, device)
+        d, m = band.encode_depths(x, flag)
+        dp, mp = band.encode_depths_plain(x, flag_p)
         _sync(device)
-        e1 = max(_max_err(d, dp), _max_err(m, mp))
+        e1 = max(_max_err(d, dp), _max_err(m, mp), _max_err(flag, flag_p))
+        _require(int(flag) == int(bool((dp != 8).any())), f"{label}: K1's flag is wrong")
 
         T = d.shape[1]
         pk, nk = band.encode_payload(x, d, m, out=_sentinels(B, 16 * T, device))
@@ -240,6 +330,12 @@ def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, 
         if uniform:
             _require(bool((n64 == 8 * T).all()) and torch.equal(pk4.cpu(), pk.cpu()),
                      f"{label}: every tile is depth 8 but K4's payload is not K2's")
+        enc = DbdeCodec(H, W, device=device).encode(x)
+        _require(enc.n64.cpu().numpy().tolist() == n64.tolist()
+                 and all(np.array_equal(enc.payload_host()[b, : 2 * int(n64[b])],
+                                        pk_host[b, : 2 * int(n64[b])]) for b in range(B)),
+                 f"{label}: DbdeCodec.encode's n64 or stream is not K2's")
+        gate_errs = check_gates(label, x, d, m, pk, pk4)
         e5 = 0
         for src in (pk4, pk4s):
             out_k = band.decode_frames_u8(m, src, H, W)
@@ -281,10 +377,10 @@ def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, 
                      f"{label}: decode_tiles did not return the frames")
 
         for name, e in zip(errs, (e1, e2, e3, e4, e5, e6, e7)):
-            errs[name] = max(errs[name], e)
+            errs[name] = max(errs[name], e, gate_errs.get(name, 0))
         print(f"phase 2 {label}: max |kernel - plain| K1 {e1} K2 {e2} K3 {e3} K4 {e4} K5 {e5} "
-              f"K6 {e6} K7 {e7}; T {T}, Tp {tp}, n64 max {int(n64.max())}, stride {S}, "
-              f"all depth 8: {uniform}", flush=True)
+              f"K6 {e6} K7 {e7}; gate cases {gate_errs}; T {T}, Tp {tp}, "
+              f"n64 max {int(n64.max())}, stride {S}, all depth 8: {uniform}", flush=True)
     _require(max(errs.values()) <= TOLERANCE, f"kernels disagree with plain: {errs}")
     return errs
 
@@ -324,22 +420,32 @@ def check_k6_repeats(device: torch.device, batches, repeats: int = 50) -> None:
 
 def expected_launches(frames: np.ndarray, batch: int) -> dict[str, int]:
     """Kernel launches of a write_video + read_video of ``frames`` on a GPU:
-    each batch runs K1, then K4 and K5 if every tile of it is depth 8 (by
-    the numpy oracle's depth map), else K2 and K3."""
+    each batch's encode runs K1, then K2 and K4, gated on the device so
+    that one of them writes; its decode (from the reader's host depths)
+    runs K5 if every tile of it is depth 8 (by the numpy oracle's depth
+    map), else K3."""
     n = dict.fromkeys(band.LAUNCHES, 0)
     for i in range(0, len(frames), batch):
         uniform = all(int(ref_numpy.tile_depths_mins(ref_numpy.tile_image(f))[0].min()) == 8
                       for f in frames[i : i + batch])
-        n["encode_depths"] += 1
-        n["encode_payload_u8" if uniform else "encode_payload"] += 1
-        n["decode_u8" if uniform else "decode"] += 1
+        for key in ("encode_depths", "encode_payload", "encode_payload_u8",
+                    "decode_u8" if uniform else "decode"):
+            n[key] += 1
     return n
 
 
+def _digest(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
 def check_main_path(device: torch.device, frames: np.ndarray, batch: int):
-    """Phase 3: write_video → read_video through the port.  Returns
-    (launches per kernel during the run, (write seconds, read seconds)),
-    both on the host clock and including the file IO."""
+    """Phase 3: write_video → read_video through the port (both at their
+    default pipeline of 2 batches).  Returns (launches per kernel during
+    the run, (write seconds, read seconds) on the host clock, file IO
+    included, the file's sha256, {the bytes of pinned memory that torch's
+    pinned-memory cache holds after read_video, and the bytes it had to
+    add during read_video})."""
     N, H, W = frames.shape
     # plain versions on the CPU launch nothing
     expected = expected_launches(frames, batch) if device.type == "cuda" \
@@ -349,20 +455,270 @@ def check_main_path(device: torch.device, frames: np.ndarray, batch: int):
         band.reset_launches()
         t0 = time.perf_counter()
         write_video(path, frames, frame_hz=1000.0, device=device, batch_size=batch)
+        before = _pinned_bytes(device)
         t1 = time.perf_counter()
         vh, headers, out = read_video(path, device=device, batch_size=batch)
         seconds = (t1 - t0, time.perf_counter() - t1)
+        after = _pinned_bytes(device)
+        pinned = {"cached after read_video": after, "added by read_video": after - before}
         launches = dict(band.LAUNCHES)
         want = b"".join(ref_numpy.pack_frame(i, frames[i]) for i in range(min(2, N)))
         with open(path, "rb") as f:
             f.seek(VIDEO_HEADER_BYTES)
             got = f.read(len(want))
+        digest = _digest(path)
     _require((vh.height, vh.width) == (H, W), "video header geometry")
     _require([h.index for h in headers] == list(range(N)), "frame indices")
     _require(np.array_equal(out, frames), "read_video did not return the written frames")
     _require(got == want, "first records differ from ref_numpy.pack_frame")
     _require(launches == expected, f"launches {launches}, expected {expected}")
-    return launches, seconds
+    return launches, seconds, digest, pinned
+
+
+def _pinned_bytes(device: torch.device) -> int:
+    """Bytes of pinned memory in torch's pinned-memory cache, blocks in use
+    and free alike (0 on the CPU)."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.host_memory_stats().get("allocated_bytes.current", 0)
+
+
+def time_pipelines(device: torch.device, frames: np.ndarray, batch: int, digest: str,
+                   depths=(2, 1, 1, 2)) -> dict[int, list[tuple[float, float]]]:
+    """Phase 3: ``DbdeWriter`` then ``DbdeReader`` of ``frames`` at each
+    pipeline depth of ``depths`` in turn, host clock, file IO included;
+    every file must have sha256 ``digest`` (write_video's) and every read
+    return the frames.  Returns {pipeline: [(write s, read s), ...]}."""
+    N, H, W = frames.shape
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, depth in enumerate(depths):
+            # a new file each pass, as write_video's: truncating the last
+            # pass's file would put freeing its pages in the timed write
+            path = os.path.join(tmp, f"pipeline{i}.dbde")
+            t0 = time.perf_counter()
+            with DbdeWriter(path, H, W, frame_hz=1000.0, device=device, pipeline=depth) as wr:
+                for i in range(0, N, batch):
+                    wr.write(frames[i : i + batch])
+            t1 = time.perf_counter()
+            with DbdeReader(path, batch_size=batch, device=device, pipeline=depth) as rd:
+                _, got = rd.read_all()
+            t2 = time.perf_counter()
+            _require(_digest(path) == digest and np.array_equal(got, frames),
+                     f"pipeline {depth}: the file or the frames read back differ")
+            os.remove(path)
+            out.setdefault(depth, []).append((t1 - t0, t2 - t1))
+    return out
+
+
+def stream_split(device: torch.device, frames: np.ndarray, batch: int,
+                 digest: str) -> dict[str, dict[str, float]]:
+    """Phase 3: the host-clock split of one instrumented pass of the
+    streaming path, each stage of each batch run to its end (the device
+    synchronised) before the next starts, so that no two overlap as they do
+    in the pipelined passes:
+
+      * write: stage (the caller's frames into pinned memory), h2d (to the
+        card), kernels (K1, K2, K4), d2h (n64, depths and minima, then the
+        live payload words), write (``record_iovecs`` + ``writev``);
+      * read: parse (the reader's walk into its pinned, release-gated
+        slots), h2d (depths, minima, payload), kernels (K3, or K5 for an
+        all-depth-8 batch), d2h (``materialize``: into pinned memory, then
+        into the pageable array that is kept to the end, as ``read_video``
+        keeps it; none of the kept arrays may be pinned), concatenate (the
+        one array ``read_video`` returns).
+
+    The file must have sha256 ``digest`` and the frames come back.
+    Returns {"write": {stage: s}, "read": {stage: s}}, summed over the
+    batches."""
+    N, H, W = frames.shape
+    codec = DbdeCodec(H, W, device=device)
+    split = {"write": dict.fromkeys(("stage", "h2d", "kernels", "d2h", "write"), 0.0),
+             "read": dict.fromkeys(("parse", "h2d", "kernels", "d2h", "concatenate"), 0.0)}
+
+    def timed(leg: str, stage: str, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        _sync(device)
+        split[leg][stage] += time.perf_counter() - t0
+        return result
+
+    def fetch(enc):
+        n64, depths, mins = HostCopy([enc.n64, enc.depths, enc.mins]).wait()
+        (payload,) = HostCopy([enc.payload[:, : 2 * int(n64.max())]]).wait()
+        return n64, depths, mins, payload
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "split.dbde")
+        with open(path, "wb") as f:
+            f.write(VideoHeader(height=H, width=W, frame_hz=1000.0).pack())
+            f.flush()
+            for i in range(0, N, batch):
+                chunk = frames[i : i + batch]
+                staged = timed("write", "stage", lambda: codec.stage(chunk))
+                (x,) = timed("write", "h2d", lambda: codec._put((staged, torch.uint8)))
+                enc = timed("write", "kernels", lambda: codec.encode(x))
+                n64, depths, mins, payload = timed("write", "d2h", lambda: fetch(enc))
+                iov = record_iovecs(depths, mins, payload, n64, range(i, i + len(chunk)))
+                timed("write", "write", lambda: _writev_all(f.fileno(), iov))
+        _require(_digest(path) == digest, "the instrumented write's file differs")
+        with DbdeReader(path, batch_size=batch, device=device) as rd:
+            pool, kept = _GatedPool(), []
+            while (parsed := timed("read", "parse", lambda: rd._read_batch_arrays(pool=pool))):
+                headers, (depths, mins, payload, _), release = parsed
+                d, m, p = timed("read", "h2d", lambda: codec._put(
+                    (depths, torch.uint8), (mins, torch.uint8), (payload, torch.uint32)))
+                out = timed("read", "kernels", lambda: band.decode_frames_u8(m, p, H, W)
+                            if all_depth8(depths) else band.decode_frames(d, m, p, H, W))
+                kept.append(timed("read", "d2h", lambda: codec.materialize(out)))
+                release()
+        _require(not any(torch.from_numpy(k).is_pinned() for k in kept),
+                 "materialize handed back pinned memory")
+        got = timed("read", "concatenate", lambda: np.concatenate(kept))
+        _require(np.array_equal(got, frames), "the instrumented read did not return the frames")
+    return split
+
+
+class TransferLog(TorchDispatchMode):
+    """Every copy between host and device made while it is active, as
+    (kind, host side pinned, non_blocking): ``copy_`` and ``to``/``cpu``
+    (``_to_copy``) alike, from wherever they are called."""
+
+    def __init__(self):
+        super().__init__()
+        self.copies = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten.copy_.default:
+            dst, src = args[0], args[1]
+            non_blocking = bool(args[2] if len(args) > 2 else kwargs.get("non_blocking", False))
+            if dst.device.type != src.device.type:
+                host = dst if dst.device.type == "cpu" else src
+                kind = "d2h" if host is dst else "h2d"
+                self.copies.append((kind, host.is_pinned(), non_blocking))
+        elif func is torch.ops.aten._to_copy.default:
+            src, dev = args[0], kwargs.get("device")
+            if dev is not None and torch.device(dev).type != src.device.type:
+                # a copy to the host lands in new memory: pinned only if asked for
+                pinned = src.is_pinned() if src.device.type == "cpu" \
+                    else bool(kwargs.get("pin_memory"))
+                self.copies.append(("to", pinned, bool(kwargs.get("non_blocking", False))))
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def sync_debug_error():
+    """``torch.cuda.set_sync_debug_mode("error")`` for the block: any call
+    that makes the host wait for the device through PyTorch raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+SLEEP_CYCLES = 2_000_000_000  # about a second of the card's clock
+
+
+def check_async(device: torch.device, camera: np.ndarray, random: np.ndarray) -> dict:
+    """Phase 3c: the CUDA path reads nothing back and waits for no earlier
+    batch.  Behind a device sleep of about a second on the compute stream,
+    under ``sync_debug_error`` and a :class:`TransferLog`:
+
+      * ``DbdeCodec.encode`` of ``camera``, ``random`` (every tile depth 8)
+        and a mixed batch (``camera`` with its last frame from ``random``);
+      * ``decode_dispatch`` of a camera batch from a reader's pooled slots;
+      * ``DbdeWriter.write`` of two batches at pipeline 2 into a writer
+        already holding two, so that each write also drains the batch two
+        writes old.
+
+    None may raise, the sleep must still be running when they have all
+    returned (nothing waited for the device), and every copy between host
+    and device must be ``non_blocking`` with a pinned host side.  The plain
+    ``.to(device)`` of a pageable array must raise under the same mode (the
+    check is live).  Then the encodes must equal K2's stream and n64 with
+    no flag, the decode the frames and the writer's file the band codec's
+    records.  Returns a summary: seconds of the checked calls, copies
+    seen by kind, slots pinned."""
+    B, H, W = camera.shape
+    mixed = np.concatenate([camera[:-1], random[-1:]])
+    batches = {"camera": camera, "all depth 8": random, "mixed, one all-depth-8 frame": mixed}
+    codec = DbdeCodec(H, W, device=device)
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        source, written = os.path.join(tmp, "source.dbde"), os.path.join(tmp, "written.dbde")
+        write_video(source, np.concatenate([camera, camera]), device=device, batch_size=B)
+        rd = DbdeReader(source, batch_size=B, device=device)
+        wr = DbdeWriter(written, H, W, device=device, pipeline=2)
+        try:
+            pool = _GatedPool()
+            first = rd._read_batch_arrays(pool=pool)
+            rd._codec.materialize(rd._codec.decode_dispatch(*first[1][:3]))  # warm-up
+            slot = rd._read_batch_arrays(pool=pool)[1][:3]  # the pool's second slot
+            summary["slots pinned"] = all(torch.from_numpy(a).is_pinned() for a in slot)
+            for frames in batches.values():  # warm-up: the caching allocators' blocks
+                codec.encode(frames)
+            for frames in (camera, random, camera):
+                wr.write(frames)
+            # a dispatch mode's first use imports modules for seconds of host
+            # time, longer than the sleep: not in the checked calls
+            with TransferLog():
+                torch.ones(1, device=device).cpu()
+            _sync(device)
+            log = TransferLog()
+            with sync_debug_error():
+                torch.cuda._sleep(SLEEP_CYCLES)
+                asleep = torch.cuda.Event()
+                asleep.record()
+                t0 = time.perf_counter()
+                with log:
+                    encs = {k: codec.encode(f) for k, f in batches.items()}
+                    pending = rd._codec.decode_dispatch(*slot)
+                    wr.write(mixed)
+                    wr.write(random)
+                summary["seconds"] = time.perf_counter() - t0
+                summary["device still asleep"] = not asleep.query()
+                try:
+                    torch.from_numpy(np.zeros(1 << 20, np.uint8)).to(device)
+                    summary["pageable copy raised"] = False
+                except RuntimeError:
+                    summary["pageable copy raised"] = True
+            _sync(device)
+            frames_back = rd._codec.materialize(pending)
+            wr.close()
+        finally:
+            rd.close()
+            wr.close()
+        for label, frames in batches.items():
+            x = torch.from_numpy(frames).to(device)
+            want_p, want_n = band.encode_payload(x, *band.encode_depths(x))
+            n64 = want_n.cpu().numpy()
+            got = encs[label]
+            _require(got.n64.cpu().numpy().tolist() == n64.tolist() and all(
+                np.array_equal(got.payload_host()[b, : 2 * n64[b]],
+                               want_p.cpu().numpy()[b, : 2 * n64[b]]) for b in range(B)),
+                f"{label}: the encode under the sync check differs from K2's")
+        _require(np.array_equal(frames_back, camera),
+                 "decode_dispatch from the reader's slots did not return the frames")
+        want = b"".join(b"".join(pack_frames_bytes(codec.encode(f), range(i * B, (i + 1) * B)))
+                        for i, f in enumerate((camera, random, camera, mixed, random)))
+        with open(written, "rb") as f:
+            _require(f.read()[VIDEO_HEADER_BYTES:] == want,
+                     "the writer's file under the sync check differs from the codec's records")
+    kinds = collections.Counter(kind for kind, _, _ in log.copies)
+    summary["copies"] = dict(kinds)
+    summary["all pinned and non_blocking"] = all(p and nb for _, p, nb in log.copies)
+    _require(summary["slots pinned"], "the reader's pool slots are not pinned")
+    _require(summary["all pinned and non_blocking"],
+             f"a copy between host and device was pageable or blocking: {log.copies}")
+    _require(kinds["h2d"] >= 6 and kinds["d2h"] >= 4,
+             f"the transfer log saw too few copies: {summary['copies']}")
+    _require(summary["device still asleep"],
+             f"the checked calls waited for the device ({summary['seconds']:.3f} s)")
+    _require(summary["pageable copy raised"],
+             "a blocking copy from pageable memory did not raise: the sync check is not live")
+    return summary
 
 
 def check_tiles_path(device: torch.device, batches) -> tuple[dict, float]:
@@ -411,40 +767,52 @@ def _depth_maps(frames: np.ndarray) -> np.ndarray:
 def _shard_launches(n: dict, depths: np.ndarray, n_data: int, n_tiles: int,
                     general: str, uniform: str) -> None:
     """Count one launch of ``uniform`` for each shard of a (B, h, w) batch
-    of depth maps whose band is all depth 8, else one of ``general``."""
+    of depth maps whose band is all depth 8, else one of ``general``: the
+    choice made on the host, from host depths."""
     for rows in np.split(depths, n_data):
         for part in np.split(rows, n_tiles, axis=1):
             n[uniform if part.size and (part == 8).all() else general] += 1
+
+
+def _gated_launches(n: dict, shards: int, general: str, uniform: str) -> None:
+    """Both kernels of a pair launched for each shard, gated on the device."""
+    n[general] += shards
+    n[uniform] += shards
 
 
 def expected_sharded_launches(frames: np.ndarray, batch: int, n_data: int,
                               n_tiles: int) -> dict[str, int]:
     """Kernel launches of write_video_sharded then iter_video_sharded of
     ``frames`` in batches of ``batch`` (a multiple of n_data) on a GPU mesh:
-    every shard of every batch runs K1, then K4 if its band of its frames is
-    all depth 8 (by the numpy oracle's depth map), else K2; and decodes with
-    K5 if so, else K3.  The writer pads a short tail batch with repeats of
-    its last frame, the reader with records of depth 0."""
+    every shard of every batch runs K1, K2 and K4 (gated on the device),
+    and decodes from host depths with K5 if its band of its frames is all
+    depth 8 (by the numpy oracle's depth map), else K3.  The reader pads a
+    short tail batch with records of depth 0."""
     depths = _depth_maps(frames)
     n = dict.fromkeys(band.LAUNCHES, 0)
     for i in range(0, len(frames), batch):
         d = depths[i : i + batch]
         pad = -len(d) % n_data
         n["encode_depths"] += n_data * n_tiles
-        _shard_launches(n, np.concatenate([d, np.repeat(d[-1:], pad, 0)]), n_data, n_tiles,
-                        "encode_payload", "encode_payload_u8")
+        _gated_launches(n, n_data * n_tiles, "encode_payload", "encode_payload_u8")
         _shard_launches(n, np.concatenate([d, np.zeros((pad, *d.shape[1:]), d.dtype)]),
                         n_data, n_tiles, "decode", "decode_u8")
     return n
 
 
-def _roundtrip_launches(frames: np.ndarray, n_data: int, n_tiles: int) -> dict[str, int]:
-    """Launches of one sharded encode and decode of ``frames`` on a GPU mesh."""
+def _roundtrip_launches(frames: np.ndarray, n_data: int, n_tiles: int,
+                        device_depths: bool) -> dict[str, int]:
+    """Launches of one sharded encode and decode of ``frames`` on a GPU
+    mesh: each shard's encode K1, K2 and K4; its decode from host depths K3
+    or K5 by its band's depths, from depths on the device both, gated."""
+    shards = n_data * n_tiles
     n = dict.fromkeys(band.LAUNCHES, 0)
-    depths = _depth_maps(frames)
-    n["encode_depths"] = n_data * n_tiles
-    _shard_launches(n, depths, n_data, n_tiles, "encode_payload", "encode_payload_u8")
-    _shard_launches(n, depths, n_data, n_tiles, "decode", "decode_u8")
+    n["encode_depths"] = shards
+    _gated_launches(n, shards, "encode_payload", "encode_payload_u8")
+    if device_depths:
+        _gated_launches(n, shards, "decode", "decode_u8")
+    else:
+        _shard_launches(n, _depth_maps(frames), n_data, n_tiles, "decode", "decode_u8")
     return n
 
 
@@ -461,8 +829,10 @@ def check_sharded_path(device: torch.device, frames: np.ndarray, batch: int,
     sharded_roundtrip_step of ``frames[:batch]`` on the 2x2 mesh returns it
     with the single-device codec's n64; (d) graft_entry's dry run on
     ``dryrun_devices`` slots and entry() on ``device``.  Each part's
-    launches must be those the numpy oracle's depths predict ((d): K1, K2
-    and K3 only).  Returns ({part: launches}, {leg: host seconds}): the
+    launches must be those the numpy oracle's depths predict ((c) decodes
+    from the depths on the device, so K3 and K5 both launch, gated; (d)
+    must use K1–K5 and no other kernel: the dry run's codec calls launch
+    the gated pairs, entry() K1, K2 and K3).  Returns ({part: launches}, {leg: host seconds}): the
     sharded write and read of (a) beside write_video and read_video of the
     same frames, file IO included."""
     on_gpu = device.type == "cuda"
@@ -504,7 +874,7 @@ def check_sharded_path(device: torch.device, frames: np.ndarray, batch: int,
                  and stream.tobytes() == rec[12 + 2 * T:],
                  f"1x4 mesh: frame {i} differs from ref_numpy.pack_image")
     _require(np.array_equal(out, ragged), "1x4 mesh: decode_sharded did not return the frames")
-    want = _roundtrip_launches(ragged, 1, 4) if on_gpu else none
+    want = _roundtrip_launches(ragged, 1, 4, device_depths=False) if on_gpu else none
     _require(launches["b"] == want, f"1x4 mesh launches {launches['b']}, expected {want}")
 
     first = frames[:batch]
@@ -514,7 +884,7 @@ def check_sharded_path(device: torch.device, frames: np.ndarray, batch: int,
     single_n64 = int(DbdeCodec(*first.shape[1:], device=device).encode(first).n64.sum())
     _require(np.array_equal(out, first) and n64 == single_n64,
              f"sharded_roundtrip_step: n64 {n64} against {single_n64}, or frames differ")
-    want = _roundtrip_launches(first, 2, 2) if on_gpu else none
+    want = _roundtrip_launches(first, 2, 2, device_depths=True) if on_gpu else none
     _require(launches["c"] == want, f"roundtrip step launches {launches['c']}, expected {want}")
 
     band.reset_launches()
@@ -526,7 +896,9 @@ def check_sharded_path(device: torch.device, frames: np.ndarray, batch: int,
              and n64.cpu().numpy().tolist() == _depth_maps(example).sum(axis=(1, 2)).tolist(),
              "graft_entry.entry's step did not return the frames and their n64")
     used = {k for k, v in launches["d"].items() if v}
-    want = {"encode_depths", "encode_payload", "decode"} if on_gpu else set()
+    # the dry run's codec calls launch the gated pairs; entry() K1, K2, K3
+    want = {"encode_depths", "encode_payload", "encode_payload_u8", "decode",
+            "decode_u8"} if on_gpu else set()
     _require(used == want, f"dry run and entry launched {launches['d']}")
     return launches, seconds
 
@@ -534,9 +906,9 @@ def check_sharded_path(device: torch.device, frames: np.ndarray, batch: int,
 def time_shard_encodes(device: torch.device, frames: np.ndarray, iters: int = 20):
     """Phase 5: ms per call (CUDA events, in turns) of the four shard
     encodes of ``frames`` on a 2x2 mesh of ``device``: through
-    ``DbdeCodec.encode``, whose exact depth-8 choice reads a flag back from
-    the card once a shard, and as K1 and K2 on each shard with no check.
-    Returns (checked ms, unchecked ms)."""
+    ``DbdeCodec.encode`` (K1, then K2 and K4 gated by K1's flag, no
+    read-back), and as K1 and K2 alone on each shard.  Returns (codec ms,
+    K1 + K2 ms)."""
     B, H, W = frames.shape
     codec = DbdeCodec(H // 2, W, device=device)
     shards = [torch.from_numpy(np.ascontiguousarray(
@@ -572,10 +944,10 @@ def time_paths(device: torch.device, frames: np.ndarray, iters: int = 20) -> dic
     """Phase 4: ms per call of kernel and plain version, measured in turns
     (plain, kernel, kernel, plain) and averaged per version.
 
-    The band encode path is ``DbdeCodec.encode`` (K1, the depth-8 check,
-    then K2 or K4) against the same steps in plain versions; "encode path
-    general" is K1 + K2 with no check, which prices the check and, on
-    all-depth-8 content, what K4 saves.  The band decode path is K3, or K5
+    The band encode path is ``DbdeCodec.encode`` (K1 with its flag, then
+    K2 and K4 gated by it, no read-back) against the same steps in plain
+    versions; "encode path general" is K1 + K2 with no flag, which prices
+    the gated launch and, on all-depth-8 content, what K4 saves.  The band decode path is K3, or K5
     when every tile is depth 8; that choice is made once on the host, as
     the reader makes it from host depths.  The tiles
     paths are ``DbdeCodec(backend="tiles")``'s encode (layout transform,
@@ -594,10 +966,10 @@ def time_paths(device: torch.device, frames: np.ndarray, iters: int = 20) -> dic
     enc6 = tiles.encode(x)
 
     def encode_plain():
-        dd, mm = band.encode_depths_plain(x)
-        if all_depth8(dd):
-            return band.encode_payload_u8_plain(x, mm)
-        return band.encode_payload_plain(x, dd, mm)
+        mixed = torch.empty((1,), dtype=torch.int32, device=device)
+        dd, mm = band.encode_depths_plain(x, mixed)
+        pp, nn = band.encode_payload_plain(x, dd, mm, mixed=mixed)
+        return band.encode_payload_u8_plain(x, mm, out=pp, n64=nn, mixed=mixed)
 
     def encode_general(depths_fn, payload_fn):
         dd, mm = depths_fn(x)
@@ -733,8 +1105,11 @@ def _n64_total(frames: np.ndarray, device: torch.device) -> int:
 QUICKCHECK = ((2048, 2048, "camera"), (2048, 2048, "random"), (3072, 64, "camera"),
               (2536, 2048, "camera"), (1024, 64, "flat"))
 ENCODE_KEYS = ("encode_depths", "encode_payload", "encode_payload_u8")
-BENCH_MODES = ((), ("--content", "random"), ("--latency",), ("--stream",), ("--host-stream",),
-               ("--composed",))
+# --stream and --composed at 64 frames: 4 batches of 16, not one cold batch
+BENCH_MODES = ((), ("--content", "random"), ("--latency",), ("--stream", "--frames", "64"),
+               ("--host-stream",), ("--composed", "--frames", "64"))
+# the keys of bench.py's line, which python -m dbde_tpu_torch.bench prints
+PORT_BENCH_CONFIGS = ("camera_2048", "random_2048", "random_2536x2048")
 
 
 def _cli(argv, launches: dict) -> tuple[int, str, dict]:
@@ -844,6 +1219,29 @@ def run_cli_benches(card: str) -> dict[str, int]:
     return total
 
 
+def run_port_bench(card: str) -> dict[str, int]:
+    """Phase 6: the port's headline bench, ``main()`` of ``python -m
+    dbde_tpu_torch.bench``, in-process: its one JSON line must carry
+    bench.py's keys (the camera config at the top level, ``configs``
+    holding all three), every number positive and ``device`` the card.
+    Prints the line; returns its launches."""
+    out = io.StringIO()
+    band.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = port_bench.main()
+    seconds = time.perf_counter() - t0
+    launches = dict(band.LAUNCHES)
+    line = out.getvalue().strip().splitlines()[-1]
+    result = json.loads(line)
+    _require(rc == 0 and set(result.get("configs", ())) == set(PORT_BENCH_CONFIGS)
+             and all(v > 0 for v in _numbers(result)) and result.get("device") == card,
+             f"python -m dbde_tpu_torch.bench: exit {rc}, line {line}")
+    print(f"phase 6 python -m dbde_tpu_torch.bench: {line} on {card} ({seconds:.1f} s)",
+          flush=True)
+    return launches
+
+
 def start_cli_subprocess(path: str) -> subprocess.Popen:
     """Start ``python -X importtime -m dbde_tpu_torch.cli info path`` in a
     fresh interpreter; :func:`finish_cli_subprocess` checks it.  Use it as
@@ -891,16 +1289,6 @@ def main() -> int:
     native = native_binding.native_available()
     print(f"phase 1 native IO library: {'built' if native else 'unavailable (numpy path)'} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
-    # so is the profiler's first start, which phase 6's benches would pay
-    x = torch.zeros((1, 8, 8), dtype=torch.uint8, device=device)
-    starts = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        measure_device_seconds(lambda: band.encode_depths(x), reps=1)
-        starts.append(time.perf_counter() - t0)
-    print(f"phase 1 torch.profiler: first measure_device_seconds {starts[0]:.2f} s, "
-          f"second {starts[1]:.2f} s", flush=True)
-
     camera16 = make_content(2048, 2048, 16)
     geometries = [
         ("camera 16x2048x2048", camera16),
@@ -922,12 +1310,28 @@ def main() -> int:
                               ("random 16x2048x2048", random16)])
 
     stream_frames = np.concatenate([make_content(2048, 2048, 64), random16])
-    launches, (t_write, t_read) = check_main_path(device, stream_frames, batch=16)
+    launches, (t_write, t_read), digest, pinned = check_main_path(device, stream_frames,
+                                                                   batch=16)
     n = len(stream_frames)
     print(f"phase 3 main path: 64 camera + 16 random 2048x2048 frames bit-exact; "
           f"write_video {t_write:.4f} s "
           f"({n / t_write:.1f} frames/s), read_video {t_read:.4f} s ({n / t_read:.1f} frames/s) "
-          f"(host clock, file IO included, batch 16); launches {launches}", flush=True)
+          f"(host clock, file IO included, batch 16); launches {launches}; torch's pinned-memory "
+          f"cache in bytes {json.dumps(pinned)}, beside {stream_frames.nbytes} bytes of frames",
+          flush=True)
+    for depth, runs in time_pipelines(device, stream_frames, 16, digest).items():
+        legs = "; ".join(f"write {w:.4f} s ({n / w:.1f} frames/s), read {r:.4f} s "
+                         f"({n / r:.1f} frames/s)" for w, r in runs)
+        print(f"phase 3 pipeline={depth}, same frames, files equal, reads bit-exact: {legs} "
+              f"on {card}", flush=True)
+    split = stream_split(device, stream_frames, 16, digest)
+    for leg, stages in split.items():
+        total = sum(stages.values())
+        parts = ", ".join(f"{k} {v:.4f} s ({v / total:.1%})" for k, v in stages.items())
+        print(f"phase 3 split, {leg}, one instrumented pass, each stage synchronised: {parts}; "
+              f"sum {total:.4f} s ({n / total:.1f} frames/s) on {card}", flush=True)
+    print(f"phase 3 end: torch's pinned-memory cache holds {_pinned_bytes(device)} bytes; "
+          f"the frames materialize handed back were pageable", flush=True)
 
     tiles_launches, t_tiles = check_tiles_path(device, [camera16, random16])
     print(f"phase 3b tiles backend: 16 camera + 16 random 2048x2048 frames bit-exact, records "
@@ -935,6 +1339,12 @@ def main() -> int:
           f"record bytes and parse included); launches {tiles_launches}", flush=True)
     launches.update(encode_tiles=tiles_launches["encode_tiles"],
                     decode_tiles=tiles_launches["decode_tiles"])
+
+    summary = check_async(device, camera16, random16)
+    print(f"phase 3c sync check: encode of camera, all-depth-8 and mixed batches, decode_dispatch "
+          f"from the reader's pinned slots and two DbdeWriter.write at pipeline 2 under "
+          f"set_sync_debug_mode('error') raised nothing and returned with the device still "
+          f"asleep; {json.dumps(summary)}", flush=True)
 
     times, bounds = {}, {}
     for content, frames in (("camera", camera16), ("random", random16)):
@@ -951,6 +1361,11 @@ def main() -> int:
                   f"({pix / k_ms / 1e6:.2f} Gpix/s), plain {p_ms:.4f} ms "
                   f"({pix / p_ms / 1e6:.2f} Gpix/s){bound} on {card}", flush=True)
     k2, k4 = times["random"]["encode_payload"][0], times["random"]["encode_payload_u8"][0]
+    for content in times:
+        gated, general = times[content]["encode path"][0], times[content]["encode path general"][0]
+        print(f"phase 4 band encode path 16x2048x2048 {content}: DbdeCodec.encode (K1 with its "
+              f"flag, K2 and K4 gated, no read-back) {gated:.4f} ms beside K1 + K2 alone "
+              f"{general:.4f} ms, {gated / general:.3f}x on {card}", flush=True)
     print(f"phase 4 K2 on all-depth-8 content (16x2048x2048 random): {k2:.4f} ms beside "
           f"K4 {k4:.4f} ms for the same bytes, K2/K4 {k2 / k4:.3f} on {card}", flush=True)
     sizes = [("16x2048x2536 camera", make_content(2536, 2048, 16)),
@@ -987,9 +1402,23 @@ def main() -> int:
     print(f"phase 5 host clock, {n} 2048x2048 frames, batch 16, file IO included: {legs} "
           f"on {card}", flush=True)
     checked_ms, unchecked_ms = time_shard_encodes(device, camera16)
-    print(f"phase 5 shard encodes, 2x2 mesh, 16x2048x2048 camera: {checked_ms:.4f} ms with the "
-          f"depth-8 check (one read-back a shard), {unchecked_ms:.4f} ms without "
-          f"(CUDA events) on {card}; phase 5 took {time.perf_counter() - t5:.1f} s", flush=True)
+    print(f"phase 5 shard encodes, 2x2 mesh, 16x2048x2048 camera: {checked_ms:.4f} ms through "
+          f"DbdeCodec.encode (K2 and K4 gated, no read-back), {unchecked_ms:.4f} ms as K1 + K2 "
+          f"alone (CUDA events) on {card}; phase 5 took {time.perf_counter() - t5:.1f} s",
+          flush=True)
+
+    # the profiler's first start is set-up too, which the first bench would
+    # pay.  It comes here, not in phase 1: on an H100 (torch 2.11) the
+    # device records a session delivers thinned out as the process aged
+    # after its first session, to none within a few minutes
+    x = torch.zeros((1, 8, 8), dtype=torch.uint8, device=device)
+    starts = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        measure_device_seconds(lambda: band.encode_depths(x), reps=1)
+        starts.append(time.perf_counter() - t0)
+    print(f"phase 6 torch.profiler: first measure_device_seconds {starts[0]:.2f} s, "
+          f"second {starts[1]:.2f} s", flush=True)
 
     t6 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1006,6 +1435,8 @@ def main() -> int:
           "roundtrip OK, launches as the content predicts; decode --pgm-dir and preview "
           f"on 3072x64 ({time.perf_counter() - t6:.1f} s)", flush=True)
     bench_launches = run_cli_benches(card)
+    port_launches = run_port_bench(card)
+    bench_launches = {k: v + port_launches[k] for k, v in bench_launches.items()}
     print("phase 6 launches: " + json.dumps({"cli files": cli_launches, "bench": bench_launches}))
     print(f"phase 6 took {time.perf_counter() - t6:.1f} s", flush=True)
 

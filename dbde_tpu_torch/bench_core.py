@@ -165,8 +165,8 @@ def run_bench(width: int = 2048, height: int = 2048, frames: int = 8,
               iters: int = 4, content: str = "camera", device="cuda") -> dict:
     """Encode and decode Gpix/s of ``DbdeCodec`` (the band backend) on ``device``.
 
-    Encode is ``codec.encode`` of a batch already on the device (K1, the
-    depth-8 check, then K2 or K4); decode is
+    Encode is ``codec.encode`` of a batch already on the device (K1, then
+    K2 and K4 gated on the device by K1's flag); decode is
     ``codec.decode_dispatch`` with host depths, as the reader passes them,
     and minima and payload on the device.  The decoded frames must equal
     the source before anything is reported."""

@@ -14,10 +14,23 @@ plain PyTorch versions.  Two backends, as in the JAX package:
   * ``"band"`` (the default) works on the frames as they are
     (:mod:`.ops.band`, K1–K5).  A batch whose tiles are all depth 8 takes
     the uniform pair (K4 encode, K5 decode), chosen exactly from the
-    batch's own depths; every other batch takes K2 and K3.
+    batch's own depths; every other batch takes K2 and K3.  On encode the
+    choice is made on the device: K1 writes the batch's flag, and K2 and
+    K4 are both launched, each doing nothing unless the flag selects it.
+    On decode, host depths (as the reader passes them) are checked on the
+    host; depths on the device choose K3 or K5 there, as encode does.
   * ``"tiles"`` moves the frames into the word-major tile layout first
     (:mod:`.ops.tile_layout`): one fused encode K6 and one decode K7 a
     batch, with no depth-8 dispatch.
+
+The CUDA path is asynchronous, as the JAX codec is: :meth:`DbdeCodec.encode`
+and :meth:`DbdeCodec.decode_dispatch` return before the device has run
+the batch, and read nothing back from it.  Host data reaches the device
+from pinned memory with ``non_blocking`` copies on the device's current
+stream, ahead of the kernels; copies back go through pinned memory
+(:class:`HostCopy`) and reach a caller in pageable arrays of its own.  A
+CPU codec copies nothing: its tensors share the caller's memory, as a
+plain PyTorch call would.
 
 The codec keeps no state between calls, so one instance may serve several
 threads.
@@ -38,8 +51,68 @@ from .ops.bitpack import MAX_WORDS_PER_TILE
 BACKENDS = ("band", "tiles")
 
 
+_NP_DTYPES = {torch.uint8: np.uint8, torch.int32: np.int32, torch.uint32: np.uint32}
+
+
+class HostCopy:
+    """Tensors copied to the host without waiting: on a CUDA device, each
+    into pinned memory from torch's pinned-memory cache with a
+    ``non_blocking`` copy enqueued on ``stream`` (default: the device's
+    current stream), after the event ``after`` if one is given.
+
+    :meth:`wait` waits for these copies alone and returns numpy views of
+    that pinned memory, for a holder that drops them soon (the writer,
+    once the batch's records are written): the memory returns to the cache
+    when the views and this object are dropped, and the cache hands it out
+    again only then.  :meth:`keep` returns copies in pageable memory that
+    are the caller's to keep, so pinned memory in use stays bounded by the
+    copies in flight.  CPU tensors are returned as they are."""
+
+    def __init__(self, tensors, stream=None, after=None):
+        self.event = None
+        self.host = list(tensors)
+        if not self.host or self.host[0].device.type == "cpu":
+            return
+        stream = stream or torch.cuda.current_stream(self.host[0].device)
+        if after is not None:
+            stream.wait_event(after)
+        with torch.cuda.stream(stream):
+            for i, t in enumerate(tensors):
+                t.record_stream(stream)  # the allocator must not reuse it before the copy
+                self.host[i] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self.host[i].copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(stream)
+
+    def wait(self) -> list[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
+
+    def keep(self) -> list[np.ndarray]:
+        """:meth:`wait`, then each array copied into pageable memory."""
+        arrays = self.wait()
+        if self.event is None:
+            return arrays
+        return [torch.empty(h.shape, dtype=h.dtype).copy_(h).numpy() for h in self.host]
+
+
 def _host(a) -> np.ndarray:
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    """A tensor or array → a host array for immediate use: on a CUDA
+    device a view of pinned memory that goes back to torch's pinned cache
+    once dropped (:meth:`HostCopy.wait`)."""
+    return HostCopy([a]).wait()[0] if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _host_tensor(a, dtype: torch.dtype) -> torch.Tensor:
+    """A host array or CPU tensor → a contiguous CPU tensor of ``dtype``,
+    sharing its memory where it already is one."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype).contiguous()
+    arr = np.ascontiguousarray(a, _NP_DTYPES[dtype])
+    if not arr.flags.writeable:  # e.g. np.asarray of a jax array: torch needs writable memory
+        arr = arr.copy()
+    return torch.from_numpy(arr)
 
 
 def resolve_device(device) -> torch.device:
@@ -61,7 +134,8 @@ def all_depth8(depths) -> bool:
     """True iff the batch has tiles and every one is depth 8, the case of
     the uniform kernels.  Host arrays are checked on the host; a device
     tensor is reduced on the device and the flag read back, which waits
-    for the kernels that produce it."""
+    for the kernels that produce it (the codec never does that: it gives
+    device depths to :func:`.ops.band.mixed_flag` instead)."""
     if isinstance(depths, torch.Tensor):
         return depths.numel() > 0 and bool(torch.all(depths == 8))
     d = np.asarray(depths)
@@ -84,13 +158,13 @@ class EncodedBatch:
     depth_exact: int | None = None
 
     def payload_host(self, max_words: int | None = None) -> np.ndarray:
-        """Payload as a (B, S) u32 host array; with ``max_words``, only the
-        first ``max_words`` words per frame are sliced on the device and
-        copied."""
+        """Payload as a (B, S) u32 host array, the caller's to keep; with
+        ``max_words``, only the first ``max_words`` words per frame are
+        sliced on the device and copied."""
         p = self.payload
         if max_words is not None and max_words < p.shape[1]:
             p = p[:, :max_words]
-        return p.cpu().numpy()
+        return HostCopy([p]).keep()[0]
 
     @classmethod
     def from_numpy(cls, depths, mins, payload, n64, device) -> "EncodedBatch":
@@ -104,7 +178,7 @@ class EncodedBatch:
 
     def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """→ (depths (B,T) u8, mins (B,T) u8, payload (B,S) u32, n64 (B,) i32)."""
-        return (_host(self.depths), _host(self.mins), self.payload_host(), _host(self.n64))
+        return tuple(HostCopy([self.depths, self.mins, self.payload, self.n64]).keep())
 
 
 class DbdeCodec:
@@ -128,18 +202,66 @@ class DbdeCodec:
         h, w = tile_grid(self.width, self.height)
         self.tiles = h * w
         self.max_payload_words = self.tiles * MAX_WORDS_PER_TILE
+        # the CUDA path's stream for copies back that must not queue behind
+        # later work on the compute stream (the writer's drain)
+        self._d2h = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
-    def _put(self, a, dtype: torch.dtype) -> torch.Tensor:
-        if isinstance(a, torch.Tensor):
-            return a.to(device=self.device, dtype=dtype).contiguous()
-        np_dtype = {torch.uint8: np.uint8, torch.uint32: np.uint32}[dtype]
-        arr = np.ascontiguousarray(a, np_dtype)
-        if not arr.flags.writeable:  # e.g. np.asarray of a jax array: torch needs writable memory
-            arr = arr.copy()
-        return torch.from_numpy(arr).to(self.device)
+    def stage(self, a, dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+        """Host data → a CPU tensor for this codec's copies: on a CUDA codec
+        a copy in new pinned memory from torch's pinned-memory cache, which
+        hands it out again only after the copies that read it have
+        completed, so the caller may reuse ``a`` at once; on a CPU codec
+        ``a`` itself (its calls finish before they return)."""
+        src = _host_tensor(a, dtype)
+        if self.device.type == "cpu":
+            return src
+        staged = torch.empty(src.shape, dtype=dtype, pin_memory=True)
+        np.copyto(staged.numpy(), src.numpy())  # one memcpy, like a pageable cudaMemcpy's
+        return staged
+
+    def host_empty(self, shape, dtype) -> np.ndarray:
+        """An uninitialised host array for data bound for this codec: in
+        pinned memory on a CUDA codec, so that its copy waits for nothing."""
+        if self.device.type == "cpu":
+            return np.empty(shape, dtype)
+        torch_dtype = {v: k for k, v in _NP_DTYPES.items()}[np.dtype(dtype).type]
+        return torch.empty(shape, dtype=torch_dtype, pin_memory=True).numpy()
+
+    def _put(self, *items) -> list[torch.Tensor]:
+        """(array or tensor, dtype) pairs → contiguous tensors of those
+        dtypes on the codec's device.
+
+        Device tensors are cast on the current stream.  On a CUDA codec,
+        host data goes through pinned memory: a pinned CPU tensor, or a
+        numpy view of pinned memory (:meth:`host_empty`, the reader's
+        pool), is copied from where it is; anything else is first copied
+        by :meth:`stage`.  The copies are ``non_blocking`` on the current
+        stream, ahead of the kernels that read them, so nothing here waits
+        for the device.  The caller keeps memory of its own that is pinned
+        unchanged until the batch's output is materialized (the reader's
+        release gate)."""
+        out = []
+        for a, dtype in items:
+            if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+                out.append(a.to(device=self.device, dtype=dtype).contiguous())
+                continue
+            src = _host_tensor(a, dtype)
+            if self.device.type == "cuda":
+                if not src.is_pinned():
+                    src = self.stage(src, dtype)
+                src = torch.empty(src.shape, dtype=dtype, device=self.device).copy_(
+                    src, non_blocking=True)
+            out.append(src)
+        return out
+
+    def copy_to_host(self, tensors, after=None) -> HostCopy:
+        """Copy device tensors back on the codec's device-to-host stream,
+        after the event ``after`` (the copy then waits for nothing enqueued
+        since on the compute stream)."""
+        return HostCopy(tensors, self._d2h, after)
 
     def _frames(self, images) -> tuple[torch.Tensor, bool]:
-        x = self._put(images, torch.uint8)
+        (x,) = self._put((images, torch.uint8))
         single = x.ndim == 2
         if single:
             x = x[None]
@@ -151,20 +273,25 @@ class DbdeCodec:
     def encode(self, images, defer_verify: bool = False) -> EncodedBatch:
         """(B, H, W) or (H, W) u8 frames (numpy or tensor) → :class:`EncodedBatch`.
 
-        ``defer_verify`` is accepted for the JAX codec's contract and has no
-        effect: the payload is always valid as returned."""
+        Returns without waiting for the device.  Host frames in pageable
+        memory are first copied into pinned memory, so the caller may reuse
+        its buffer at once; frames already pinned are copied from where
+        they are and must stay unchanged until the batch is done
+        (:meth:`stage` makes such a copy).  ``defer_verify`` is accepted
+        for the JAX codec's contract and has no effect: this codec runs no
+        speculative variant, so the payload is always valid as returned."""
         x, _ = self._frames(images)
         if self.backend == "tiles":
             T = self.tiles
             d, m, payload, n64 = tile_layout.encode_tiles(tile_layout.image_to_tiles_w(x), T)
             return EncodedBatch(depths=d[:, :T].contiguous(), mins=m[:, :T].contiguous(),
                                 payload=payload, n64=n64)
-        depths, mins = band.encode_depths(x)
-        if all_depth8(depths):  # static layout: tile t at word 16*t
-            payload = band.encode_payload_u8(x, mins)
-            n64 = torch.full((x.shape[0],), 8 * self.tiles, dtype=torch.int32, device=self.device)
-            return EncodedBatch(depths=depths, mins=mins, payload=payload, n64=n64)
-        payload, n64 = band.encode_payload(x, depths, mins)
+        mixed = torch.empty((1,), dtype=torch.int32, device=self.device)
+        depths, mins = band.encode_depths(x, mixed)
+        # K2, then K4 (static layout: tile t at word 16*t), into the same
+        # payload and n64: the flag lets exactly one of them write
+        payload, n64 = band.encode_payload(x, depths, mins, mixed=mixed)
+        band.encode_payload_u8(x, mins, out=payload, n64=n64, mixed=mixed)
         return EncodedBatch(depths=depths, mins=mins, payload=payload, n64=n64)
 
     def encode_general(self, images) -> EncodedBatch:
@@ -172,26 +299,36 @@ class DbdeCodec:
         return self.encode(images)
 
     def decode_dispatch(self, depths, mins, payload) -> torch.Tensor:
-        """Launch the decode; returns the pending (B, H, W) u8 device tensor
-        for :meth:`materialize`.  ``payload`` is (B, S) u32 with any stride
-        S ≥ 2*max(n64).  With host ``depths`` (as the reader passes them)
-        nothing waits for the device; depths already on the device are
-        checked there for the uniform case, which waits for them."""
-        m = self._put(mins, torch.uint8)
-        p = self._put(payload, torch.uint32)
+        """Launch the decode without waiting; returns the pending (B, H, W)
+        u8 device tensor for :meth:`materialize`.  ``payload`` is (B, S)
+        u32 with any stride S ≥ 2*max(n64).  Host ``depths`` (as the reader
+        passes them) choose K3 or K5 on the host; depths on the device
+        choose on the device (both kernels launched, gated by the batch's
+        flag) where S ≥ 16*T, else take K3.  Host arrays must stay
+        unchanged until :meth:`materialize` of the result returns."""
+        H, W = self.height, self.width
+        on_device = isinstance(depths, torch.Tensor) and depths.device.type != "cpu"
+        if self.backend == "band" and not on_device and all_depth8(depths):
+            m, p = self._put((mins, torch.uint8), (payload, torch.uint32))
+            return band.decode_frames_u8(m, p, H, W)
+        d, m, p = self._put((depths, torch.uint8), (mins, torch.uint8), (payload, torch.uint32))
         if self.backend == "tiles":
             tp = tile_layout.pad_tiles(self.tiles)
-            d = tile_layout.pad_last(self._put(depths, torch.uint8), tp)
-            tw = tile_layout.decode_tiles(d, tile_layout.pad_last(m, tp), p)
-            return tile_layout.tiles_w_to_image(tw, self.height, self.width)
-        if all_depth8(depths):
-            return band.decode_frames_u8(m, p, self.height, self.width)
-        d = self._put(depths, torch.uint8)
-        return band.decode_frames(d, m, p, self.height, self.width)
+            tw = tile_layout.decode_tiles(tile_layout.pad_last(d, tp),
+                                          tile_layout.pad_last(m, tp), p)
+            return tile_layout.tiles_w_to_image(tw, H, W)
+        if not on_device or p.shape[1] < self.max_payload_words:
+            return band.decode_frames(d, m, p, H, W)
+        mixed = band.mixed_flag(d)
+        out = band.decode_frames(d, m, p, H, W, mixed=mixed)
+        return band.decode_frames_u8(m, p, H, W, out=out, mixed=mixed)
 
     def materialize(self, pending: torch.Tensor) -> np.ndarray:
-        """Pending decode → (B, H, W) u8 numpy (waits for the device)."""
-        return pending.cpu().numpy()
+        """Pending decode → (B, H, W) u8 numpy, the caller's to keep.  On a
+        CUDA codec the frames come back through pinned memory, on the compute
+        stream after the work enqueued there so far, and are then copied
+        into pageable memory."""
+        return HostCopy([pending]).keep()[0]
 
     def decode(self, depths, mins, payload) -> np.ndarray:
         """Encoded arrays → (B, H, W) u8 numpy frames."""
@@ -201,7 +338,7 @@ class DbdeCodec:
         """Encode then decode; returns (frames numpy, n64 numpy)."""
         x, single = self._frames(images)
         enc = self.encode(x)
-        out, n64 = self.decode(enc.depths, enc.mins, enc.payload), _host(enc.n64)
+        out, n64 = self.decode(enc.depths, enc.mins, enc.payload), HostCopy([enc.n64]).keep()[0]
         return (out[0], n64[0]) if single else (out, n64)
 
 
@@ -249,7 +386,7 @@ def pack_frames_bytes(enc: EncodedBatch, indices=None, elapsed_ns=None) -> list[
     n64 = _host(enc.n64)
     # copy only the live payload prefix (the buffer is worst-case sized)
     mx = 2 * int(n64.max()) if len(n64) else 0
-    iov = record_iovecs(_host(enc.depths), _host(enc.mins), enc.payload_host(mx),
+    iov = record_iovecs(_host(enc.depths), _host(enc.mins), _host(enc.payload[:, :mx]),
                         n64, indices, elapsed_ns)
     k = RECORD_IOVECS_PER_FRAME
     return [b"".join(iov[k * b : k * (b + 1)]) for b in range(len(n64))]

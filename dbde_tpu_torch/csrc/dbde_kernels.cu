@@ -7,6 +7,12 @@
 // of a frame is tile row t / w_tiles, tile column t % w_tiles, as in the
 // format.
 //
+// Which pair runs is chosen on the device.  K1 writes a flag, one int32 that
+// is nonzero iff some tile of the batch is not depth 8 ("mixed"); K2 and K3
+// are launched with it and return at once where it is 0, K4 and K5 where it
+// is not, so the codec launches both kernels of a step, in that order, and
+// never reads the flag on the host.  A null flag runs the kernel as it is.
+//
 // K1, K4 and K5: one thread owns one 8x8 tile; the grid is (ceil(T/256), B)
 // with 256 threads a block.  Neighbouring threads own neighbouring tiles of
 // a tile row, so a warp's row loads and stores cover one contiguous 256-byte
@@ -33,20 +39,31 @@ constexpr int kThreads = 256;
 // is 67 MB, about 20 us at 3.35 TB/s); the arithmetic is ~200 integer ops a
 // tile.  Design: no image transpose or u32 repacking as on the TPU -- each
 // thread reads its tile's 8 rows straight from the u8 frame, and the warp's
-// loads coalesce along the tile row.
+// loads coalesce along the tile row.  With `mixed` (zeroed by the launcher
+// first), a block with a tile not at depth 8 stores 1 there: one vote a
+// block (__syncthreads_or), so the batch's K2/K4 choice costs no pass of its
+// own over the depths and no read-back.
 __global__ void __launch_bounds__(kThreads)
     encode_depths_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ depths,
-                         uint8_t* __restrict__ mins, int H, int W, int w_tiles,
-                         int T, int vec) {
+                         uint8_t* __restrict__ mins, int32_t* __restrict__ mixed, int H,
+                         int W, int w_tiles, int T, int vec) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= T) return;
   const int b = blockIdx.y;
-  uint32_t tile[16];
-  dbde_load_tile(img + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
-  uint32_t depth, mn;
-  dbde_tile_depth_min(tile, &depth, &mn);
-  depths[(size_t)b * T + t] = (uint8_t)depth;
-  mins[(size_t)b * T + t] = (uint8_t)mn;
+  uint32_t depth = 8u;
+  if (t < T) {
+    uint32_t tile[16], mn;
+    dbde_load_tile(img + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
+    dbde_tile_depth_min(tile, &depth, &mn);
+    depths[(size_t)b * T + t] = (uint8_t)depth;
+    mins[(size_t)b * T + t] = (uint8_t)mn;
+  }
+  if (mixed != nullptr && __syncthreads_or(depth != 8u) && threadIdx.x == 0) *mixed = 1;
+}
+
+// The gate of a flag-selected kernel: false where the batch's flag selects
+// the other kernel of the pair.  Read by every thread before anything else.
+__device__ __forceinline__ bool gated_off(const int32_t* mixed, bool general) {
+  return mixed != nullptr && ((*mixed != 0) != general);
 }
 
 // K2 and K3 share their chunking: block (g, b) owns chunk g of frame b,
@@ -141,6 +158,7 @@ __device__ __forceinline__ uint32_t chunk_place(const uint8_t* drow, int g, uint
 //      -- blocks that share a 16-byte segment at a seam need no
 //      read-modify-write -- and nothing at or past 2*n64 is written.
 //   5. The frame's last chunk writes n64[b].
+// Gated by `mixed` (nonzero: K2 runs; see the top of this file).
 // What this removes against a K2 that takes scanned offsets: the offsets
 // tensor and the four device operations of its scan (torch.cumsum, a cast,
 // a multiply and a subtract), and 2*depth scalar stores a tile at its own
@@ -152,10 +170,11 @@ __global__ void __launch_bounds__(kChunkThreads, 2)
     encode_payload_kernel(const uint8_t* __restrict__ img,
                           const uint8_t* __restrict__ depths,
                           const uint8_t* __restrict__ mins, uint32_t* __restrict__ payload,
-                          int32_t* __restrict__ n64, int H, int W, int w_tiles, int T, int S,
-                          int vec) {
+                          int32_t* __restrict__ n64, const int32_t* __restrict__ mixed, int H,
+                          int W, int w_tiles, int T, int S, int vec) {
   extern __shared__ uint32_t stage[];  // DBDE_STAGE_WORDS
   __shared__ uint32_t s_warp[3 * kChunkWarps];
+  if (gated_off(mixed, true)) return;
   const int tid = threadIdx.x, g = blockIdx.x, b = blockIdx.y;
   const uint8_t* drow = depths + (size_t)b * T;
 
@@ -205,13 +224,15 @@ __global__ void __launch_bounds__(kChunkThreads, 2)
 // garbage after the stream decode alike.  A corrupt depth map whose chunk
 // does not fit the stage or runs past word S takes each tile's words
 // straight from the payload instead, clamped at word S-1 as the plain
-// version's gather is (dbde_load_unpack).
+// version's gather is (dbde_load_unpack).  Gated by `mixed` as K2.
 __global__ void __launch_bounds__(kChunkThreads, 2)
     decode_kernel(const uint8_t* __restrict__ depths, const uint8_t* __restrict__ mins,
-                  const uint32_t* __restrict__ payload, uint8_t* __restrict__ out, int H,
-                  int W, int w_tiles, int T, int S, int vec) {
+                  const uint32_t* __restrict__ payload, uint8_t* __restrict__ out,
+                  const int32_t* __restrict__ mixed, int H, int W, int w_tiles, int T, int S,
+                  int vec) {
   extern __shared__ uint32_t stage[];  // DBDE_STAGE_WORDS
   __shared__ uint32_t s_warp[3 * kChunkWarps];
+  if (gated_off(mixed, true)) return;
   const int tid = threadIdx.x, g = blockIdx.x, b = blockIdx.y;
   const uint8_t* drow = depths + (size_t)b * T;
   uint32_t d[2] = {0u, 0u}, m[2] = {0u, 0u};
@@ -286,15 +307,20 @@ __device__ __forceinline__ void load_words16(const uint32_t* __restrict__ src, i
 // TPU kernel permutes words out of its folded u32 image layout; here a
 // tile's 8 row loads already are its payload words less min*0x01010101
 // (dbde_pack8), and each thread stores them as four 16-byte vectors, so a
-// warp writes one contiguous 2 KB run.
+// warp writes one contiguous 2 KB run.  Gated by `mixed` (zero: K4 runs);
+// when it runs and `n64` is given, each frame's first thread writes its
+// n64, 8*T, as K2 writes its own.
 __global__ void __launch_bounds__(kThreads)
     encode_payload_u8_kernel(const uint8_t* __restrict__ img,
                              const uint8_t* __restrict__ mins,
-                             uint32_t* __restrict__ payload, int H, int W, int w_tiles,
+                             uint32_t* __restrict__ payload, int32_t* __restrict__ n64,
+                             const int32_t* __restrict__ mixed, int H, int W, int w_tiles,
                              int T, int S, int vec, int pvec) {
+  if (gated_off(mixed, false)) return;
   const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= T) return;
   const int b = blockIdx.y;
+  if (n64 != nullptr && t == 0) n64[b] = 8 * T;
+  if (t >= T) return;
   uint32_t tile[16], w[16];
   dbde_load_tile(img + (size_t)b * H * W, H, W, t / w_tiles, t % w_tiles, vec, tile);
   dbde_pack8(tile, mins[(size_t)b * T + t], w);
@@ -305,11 +331,14 @@ __global__ void __launch_bounds__(kThreads)
 // wrapper decode_band_u8_kernel l.1262), the inverse of K4.  Bound: a read
 // of the payload (16 words a tile) and a write of the frame.  Design: four
 // 16-byte loads at 16*t, a bytewise add of the minimum (dbde_unpack8), and
-// the same row stores as K3; no depths and no offsets are read.
+// the same row stores as K3; no depths and no offsets are read.  Gated by
+// `mixed` as K4.
 __global__ void __launch_bounds__(kThreads)
     decode_u8_kernel(const uint8_t* __restrict__ mins,
                      const uint32_t* __restrict__ payload, uint8_t* __restrict__ out,
-                     int H, int W, int w_tiles, int T, int S, int vec, int pvec) {
+                     const int32_t* __restrict__ mixed, int H, int W, int w_tiles, int T,
+                     int S, int vec, int pvec) {
+  if (gated_off(mixed, false)) return;
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= T) return;
   const int b = blockIdx.y;
@@ -345,17 +374,23 @@ cudaError_t allow_stage(Kernel kernel, bool configured[kMaxDevices]) {
 
 extern "C" {
 
-int dbde_encode_depths(const void* img, void* depths, void* mins, int B, int H,
-                       int W, int vec, void* stream) {
+// `mixed` may be null; otherwise it is zeroed on the stream before K1 runs.
+int dbde_encode_depths(const void* img, void* depths, void* mins, void* mixed, int B,
+                       int H, int W, int vec, void* stream) {
   const int w_tiles = (W + 7) / 8, T = ((H + 7) / 8) * w_tiles;
+  if (mixed != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(mixed, 0, sizeof(int32_t), (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   encode_depths_kernel<<<grid_for(B, T), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)img, (uint8_t*)depths, (uint8_t*)mins, H, W, w_tiles, T, vec);
+      (const uint8_t*)img, (uint8_t*)depths, (uint8_t*)mins, (int32_t*)mixed, H, W, w_tiles,
+      T, vec);
   return (int)cudaGetLastError();
 }
 
 int dbde_encode_payload(const void* img, const void* depths, const void* mins,
-                        void* payload, void* n64, int B, int H, int W, int S, int vec,
-                        void* stream) {
+                        void* payload, void* n64, const void* mixed, int B, int H, int W,
+                        int S, int vec, void* stream) {
   const int w_tiles = (W + 7) / 8, T = ((H + 7) / 8) * w_tiles;
   static bool configured[kMaxDevices];
   const cudaError_t err = allow_stage(encode_payload_kernel, configured);
@@ -363,37 +398,38 @@ int dbde_encode_payload(const void* img, const void* depths, const void* mins,
   encode_payload_kernel<<<chunk_grid(B, T), kChunkThreads, kStageBytes,
                           (cudaStream_t)stream>>>(
       (const uint8_t*)img, (const uint8_t*)depths, (const uint8_t*)mins, (uint32_t*)payload,
-      (int32_t*)n64, H, W, w_tiles, T, S, vec);
+      (int32_t*)n64, (const int32_t*)mixed, H, W, w_tiles, T, S, vec);
   return (int)cudaGetLastError();
 }
 
-int dbde_decode(const void* depths, const void* mins, const void* payload, void* out, int B,
-                int H, int W, int S, int vec, void* stream) {
+int dbde_decode(const void* depths, const void* mins, const void* payload, void* out,
+                const void* mixed, int B, int H, int W, int S, int vec, void* stream) {
   const int w_tiles = (W + 7) / 8, T = ((H + 7) / 8) * w_tiles;
   static bool configured[kMaxDevices];
   const cudaError_t err = allow_stage(decode_kernel, configured);
   if (err != cudaSuccess) return (int)err;
   decode_kernel<<<chunk_grid(B, T), kChunkThreads, kStageBytes, (cudaStream_t)stream>>>(
       (const uint8_t*)depths, (const uint8_t*)mins, (const uint32_t*)payload, (uint8_t*)out,
-      H, W, w_tiles, T, S, vec);
+      (const int32_t*)mixed, H, W, w_tiles, T, S, vec);
   return (int)cudaGetLastError();
 }
 
-int dbde_encode_payload_u8(const void* img, const void* mins, void* payload, int B,
-                           int H, int W, int S, int vec, int pvec, void* stream) {
+int dbde_encode_payload_u8(const void* img, const void* mins, void* payload, void* n64,
+                           const void* mixed, int B, int H, int W, int S, int vec, int pvec,
+                           void* stream) {
   const int w_tiles = (W + 7) / 8, T = ((H + 7) / 8) * w_tiles;
   encode_payload_u8_kernel<<<grid_for(B, T), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)img, (const uint8_t*)mins, (uint32_t*)payload, H, W, w_tiles, T,
-      S, vec, pvec);
+      (const uint8_t*)img, (const uint8_t*)mins, (uint32_t*)payload, (int32_t*)n64,
+      (const int32_t*)mixed, H, W, w_tiles, T, S, vec, pvec);
   return (int)cudaGetLastError();
 }
 
-int dbde_decode_u8(const void* mins, const void* payload, void* out, int B, int H,
-                   int W, int S, int vec, int pvec, void* stream) {
+int dbde_decode_u8(const void* mins, const void* payload, void* out, const void* mixed,
+                   int B, int H, int W, int S, int vec, int pvec, void* stream) {
   const int w_tiles = (W + 7) / 8, T = ((H + 7) / 8) * w_tiles;
   decode_u8_kernel<<<grid_for(B, T), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)mins, (const uint32_t*)payload, (uint8_t*)out, H, W, w_tiles, T,
-      S, vec, pvec);
+      (const uint8_t*)mins, (const uint32_t*)payload, (uint8_t*)out, (const int32_t*)mixed,
+      H, W, w_tiles, T, S, vec, pvec);
   return (int)cudaGetLastError();
 }
 

@@ -55,19 +55,29 @@ def _so_path() -> str:
 
 
 def _compile() -> str | None:
+    """Build the library unless it exists → its path, or None.  Each builder
+    writes a file of its own and renames it into place, so processes and
+    threads that build at once never see a partial file; one whose build
+    fails still loads the library that another built."""
     so = _so_path()
     if os.path.exists(so):
         return so
+    fd, tmp = tempfile.mkstemp(prefix=os.path.basename(so) + ".", dir=os.path.dirname(so))
+    os.close(fd)
     cmd = [
         "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-        "-pthread", _SRC, "-o", so + ".tmp",
+        "-pthread", _SRC, "-o", tmp,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(so + ".tmp", so)
-        return so
-    except (subprocess.SubprocessError, OSError, FileNotFoundError):
-        return None
+        os.chmod(tmp, 0o755)  # mkstemp made it 0600
+        os.replace(tmp, so)
+    except (subprocess.SubprocessError, OSError):
+        pass
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return so if os.path.exists(so) else None
 
 
 def get_lib():

@@ -109,11 +109,11 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build()[0])
             P, I = ctypes.c_void_p, ctypes.c_int
             signatures = {
-                "dbde_encode_depths": [P, P, P, I, I, I, I, P],
-                "dbde_encode_payload": [P, P, P, P, P, I, I, I, I, I, P],
-                "dbde_decode": [P, P, P, P, I, I, I, I, I, P],
-                "dbde_encode_payload_u8": [P, P, P, I, I, I, I, I, I, P],
-                "dbde_decode_u8": [P, P, P, I, I, I, I, I, I, P],
+                "dbde_encode_depths": [P, P, P, P, I, I, I, I, P],
+                "dbde_encode_payload": [P, P, P, P, P, P, I, I, I, I, I, P],
+                "dbde_decode": [P, P, P, P, P, I, I, I, I, I, P],
+                "dbde_encode_payload_u8": [P, P, P, P, P, I, I, I, I, I, I, P],
+                "dbde_decode_u8": [P, P, P, P, I, I, I, I, I, I, P],
                 "dbde_encode_tiles": [P, P, P, P, P, P, I, I, I, I, P],
                 "dbde_decode_tiles": [P, P, P, P, I, I, I, I, P],
             }

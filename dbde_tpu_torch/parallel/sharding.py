@@ -21,11 +21,14 @@ process group and no collective.  The word-total prefix is a
 may appear more than once in a mesh: its shards then run one after
 another on its current stream.
 
-Each shard runs the band kernels through the codec: K1, then K4 if its
-band is all depth 8, else the scan and K2; its decode is K3, or K5 where
-the shard's depths are all 8 (:func:`~dbde_tpu_torch.codec.all_depth8`,
-exact, per shard).  On CPU devices the plain versions run instead.  The
-tiles backend (K6/K7) has no sharded path, as in the JAX package.
+Each shard runs the band kernels through the codec, which reads nothing
+back: K1, then K2 and K4, gated on the device by the shard's own flag so
+that K4 writes where the shard's band is all depth 8 and K2 elsewhere.
+Its decode from host depths is K3, or K5 where the shard's depths are all
+8 (checked on the host, exact, per shard); the round-trip step decodes
+from the depths on the device, launching K3 and K5 gated the same way.
+On CPU devices the plain versions run instead.  The tiles backend (K6/K7)
+has no sharded path, as in the JAX package.
 
 Per-shard payload segments keep a worst-case slot of 16 words a tile; the
 host assembles a file's ragged streams from (segment, total) pairs and
@@ -195,7 +198,7 @@ def encode_sharded(images, mesh: Mesh, backend: str = "auto"):
         frames = slice(d * B_loc, (d + 1) * B_loc)
         for t, (_, enc) in enumerate(row):
             live = int(totals[t, frames].max(initial=0))
-            payload[frames, t, :live] = enc.payload_host(live)
+            payload[frames, t, :live] = _host(enc.payload[:, :live])
     return depths, mins, payload.reshape(B, n_tiles * S), totals, bases, 8 * tile_grid(W, H)[0]
 
 

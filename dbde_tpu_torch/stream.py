@@ -6,22 +6,30 @@ own classes:
 
   * :class:`DbdeReader` — scans frame records on the host (records are
     self-delimiting through their ``n64`` field), batches B frames of
-    fields and dispatches one decode per batch on ``device``.  The next
-    batch is parsed and dispatched before the current one is materialized,
-    so host parsing and the host→device copy overlap device compute.
+    fields and dispatches one decode per batch on ``device``.  Up to
+    ``pipeline`` batches ahead are parsed and dispatched before the current
+    one is materialized, so host parsing and the host→device copies
+    overlap device compute and the copies back.
   * :class:`DbdeWriter` — encodes frame batches on ``device`` and writes
-    records from the host, with the same pipeline depth.
+    records from the host, keeping ``pipeline`` batches in flight.
 
 ``device`` is a torch device: ``"cpu"`` runs the codec's plain PyTorch
 versions, the default runs the CUDA kernels.  Both classes are context
 managers that close and free what they hold.
 
-The reader's release gate: a pooled parse slot returns to the pool only
-after the batch decoded from it is materialized.  The host→device copy of
-a parsed batch (``torch.from_numpy(...).to(device)`` from pageable memory)
-has finished reading the host buffer by the time it returns, and
-materializing waits for everything enqueued before it, so a released slot
-is never read again.
+On a CUDA device every copy between host and device is a ``non_blocking``
+copy from or into pinned memory (:mod:`.codec`), so the host thread waits
+only where it needs a batch's results, and then for that batch alone.
+What keeps pinned memory from being overwritten while a copy reads it:
+
+  * the writer copies the caller's frames into a pinned buffer from
+    torch's pinned-memory cache, which hands a buffer out again only once
+    the copies that read it have completed;
+  * the reader's release gate: its parse slots are pinned and pooled, and
+    a slot returns to the pool only after the batch decoded from it is
+    materialized.  The copies from the slot run on the compute stream
+    ahead of the decode, and materializing waits for the decode's output,
+    so a released slot is no longer read by any copy.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ from typing import Iterator
 
 import numpy as np
 
-from .codec import DbdeCodec, _host, pack_frames_bytes, record_iovecs, unpack_frames_bytes
+from .codec import DbdeCodec, HostCopy, record_iovecs, unpack_frames_bytes
 from .format import (
     FRAME_HEADER_BYTES,
     MAX_DIM,
@@ -97,7 +105,8 @@ class _GatedPool:
     A slot returns to the free list only when the consumer releases it,
     which the reader does after materializing the batch decoded from it
     (see the module docstring).  Steady state allocates ``pipeline + 1``
-    slots per array-shape key and reuses them from then on.
+    slots per array-shape key (pinned on a CUDA device) and reuses them
+    from then on.
     """
 
     def __init__(self):
@@ -307,10 +316,9 @@ class DbdeReader:
             key = (B, self.tiles, stride)
             slot = pool.acquire(key)
             if slot is None:
-                slot = (np.empty((B, self.tiles), np.uint8),
-                        np.empty((B, self.tiles), np.uint8),
-                        np.empty((B, stride), np.uint32),
-                        np.empty((B,), np.int32))
+                empty = self._codec.host_empty
+                slot = (empty((B, self.tiles), np.uint8), empty((B, self.tiles), np.uint8),
+                        empty((B, stride), np.uint32), empty((B,), np.int32))
             arrays = self._native.gather_fields(self._buf, offsets, self.tiles,
                                                 stride, out=slot)
             return headers, arrays, lambda: pool.release(key, slot)
@@ -345,8 +353,8 @@ class DbdeReader:
             dispatch()  # parse + dispatch the next batch while this one runs
             headers, frames, release = pending.popleft()
             self.frames_read += len(headers)
-            out = self._codec.materialize(frames)  # waits for the device
-            release()  # decode output ready ⇒ the slot's copy is done
+            out = self._codec.materialize(frames)  # waits for this batch alone
+            release()  # decode output copied back ⇒ the slot's copies are done
             yield headers, out
 
     def iter_raw(self):
@@ -398,6 +406,14 @@ class DbdeReader:
 class DbdeWriter:
     """Batched streaming writer producing a ``.dbde`` file, encoding on ``device``.
 
+    ``pipeline`` batches stay in flight: :meth:`write` enqueues a batch's
+    copy to the device, its encode and the copy back of its ``n64``,
+    depths and minima, and waits only when a batch ``pipeline`` writes
+    old is to be drained, and then for that batch alone.  Draining copies
+    back the batch's live payload words (``2*max(n64)`` a frame, on the
+    codec's device-to-host stream, so it waits for no later batch) and
+    writes its records.
+
     Records reach the sink by one of three paths: a vectored ``writev``
     straight from the encoded host arrays when the sink has a file
     descriptor; the native record assembler into a reused buffer otherwise;
@@ -425,7 +441,9 @@ class DbdeWriter:
         self._asm_scratch: list = []  # reused assemble_records output buffer
 
     def write(self, frames: np.ndarray, indices=None, elapsed_ns=None) -> None:
-        """Queue a (B, H, W) or (H, W) u8 batch for encoding."""
+        """Queue a (B, H, W) or (H, W) u8 batch for encoding.  The frames are
+        copied before this returns, so the caller may reuse its array at
+        once."""
         frames = np.asarray(frames, dtype=np.uint8)
         if frames.ndim == 2:
             frames = frames[None]
@@ -435,20 +453,20 @@ class DbdeWriter:
         indices = [int(i) for i in indices]
         ns = [int(x) for x in elapsed_ns] if elapsed_ns is not None else [0] * B
         self.frames_written += B
-        self._pending.append((self._codec.encode(frames), indices, ns))
+        enc = self._codec.encode(self._codec.stage(frames), defer_verify=True)
+        fields = HostCopy([enc.n64, enc.depths, enc.mins])  # after the encode, on its stream
+        self._pending.append((enc, fields, indices, ns))
         while len(self._pending) > self.pipeline:
             self._drain_one()
 
     def _drain_one(self) -> None:
-        enc, indices, ns = self._pending.popleft()
+        enc, fields, indices, ns = self._pending.popleft()
+        n64, depths, mins = fields.wait()  # this batch's encode and copies, nothing later
+        live = 2 * int(n64.max()) if len(n64) else 0
+        (payload,) = self._codec.copy_to_host([enc.payload[:, :live]], after=fields.event).wait()
         if self._fd is None and self._native is None:
-            for rec in pack_frames_bytes(enc, indices=indices, elapsed_ns=ns):
-                self._f.write(rec)
-            return
-        n64 = _host(enc.n64)
-        payload = enc.payload_host(2 * int(n64.max()) if len(n64) else 0)
-        depths, mins = _host(enc.depths), _host(enc.mins)
-        if self._fd is not None:
+            self._f.write(b"".join(record_iovecs(depths, mins, payload, n64, indices, ns)))
+        elif self._fd is not None:
             # vectored write straight from the host arrays (see record_iovecs)
             iov = record_iovecs(depths, mins, payload, n64, indices, ns)
             self._f.flush()

@@ -241,8 +241,10 @@ def test_unpack_frames_bytes_count_mismatch(field, match):
 
 @pytest.fixture
 def calls(monkeypatch):
-    """Count the codec's calls of each band wrapper (the plain versions run
-    on the CPU, so LAUNCHES stays at zero here)."""
+    """Count the codec's calls of each band wrapper that do the work (the
+    plain versions run on the CPU, so LAUNCHES stays at zero here): a call
+    whose batch flag selects the other kernel of its pair writes nothing
+    and is not counted."""
     from dbde_tpu_torch.ops import band
 
     n = {}
@@ -250,7 +252,8 @@ def calls(monkeypatch):
         fn = getattr(band, name)
 
         def counted(*a, _fn=fn, _name=name, **k):
-            n[_name] = n.get(_name, 0) + 1
+            if band._runs(k.get("mixed"), general=_name in ("encode_payload", "decode_frames")):
+                n[_name] = n.get(_name, 0) + 1
             return _fn(*a, **k)
 
         monkeypatch.setattr(band, name, counted)
@@ -344,3 +347,37 @@ def test_uniform_batch_crosses_packages():
         codec.decode(np.asarray(jenc.depths), np.asarray(jenc.mins), jenc.payload_host()), frames)
     depths, mins, payload, _ = enc.to_numpy()
     np.testing.assert_array_equal(jc.decode(depths, mins, payload), frames)
+
+
+# -- the batch flag and the gated pairs ----------------------------------------
+
+# rows of jax_case's batch: uniform depths 0..8 (row 8 every tile depth 8),
+# a flat frame, two adversarial frames
+FLAG_CASES = {"every tile depth 8": [8, 8], "mixed": [0, 3, 5, 9, 10, 11],
+              "mixed, one frame all depth 8": [10, 8]}
+
+
+@pytest.mark.parametrize("case", list(FLAG_CASES))
+def test_flag_selected_plain_versions_match_jax(jax_case, case):
+    """K1's flag, then K2 and K4 both called into one payload and n64 and
+    K3 and K5 into one output, each gated by the flag as the codec calls
+    the kernels: the plain versions give the JAX codec's n64 and stream
+    bytes, and the frames back."""
+    from dbde_tpu_torch.ops import band
+
+    frames, _, jenc = jax_case
+    rows = FLAG_CASES[case]
+    x = torch.from_numpy(frames[rows])
+    mixed = torch.full((1,), -1, dtype=torch.int32)
+    d, m = band.encode_depths(x, mixed)
+    assert int(mixed) == (case != "every tile depth 8")
+    payload, n64 = band.encode_payload(x, d, m, mixed=mixed)
+    assert band.encode_payload_u8(x, m, out=payload, n64=n64, mixed=mixed) is payload
+    jn64, jpay = np.asarray(jenc.n64)[rows], jenc.payload_host()[rows]
+    np.testing.assert_array_equal(n64.numpy(), jn64)
+    for b in range(len(rows)):
+        np.testing.assert_array_equal(payload.numpy()[b, : 2 * jn64[b]], jpay[b, : 2 * jn64[b]])
+    out = band.decode_frames(d, m, payload, H, W, mixed=mixed)
+    assert band.decode_frames_u8(m, payload, H, W, out=out, mixed=mixed) is out
+    np.testing.assert_array_equal(out.numpy(), frames[rows])
+    assert torch.equal(band.mixed_flag(d), mixed)

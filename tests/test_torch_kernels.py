@@ -14,8 +14,9 @@ import torch
 
 from dbde_tpu_torch.bench_core import make_adversarial, make_content, make_depth_runs
 from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_IMAGE, README_10x10_IMAGE
-from dbde_tpu_torch import read_video, write_video
-from dbde_tpu_torch.codec import DbdeCodec, pack_frames_bytes
+from dbde_tpu_torch import DbdeReader, DbdeWriter, read_video, write_video
+from dbde_tpu_torch.stream import _GatedPool
+from dbde_tpu_torch.codec import DbdeCodec, EncodedBatch, pack_frames_bytes
 from dbde_tpu_torch.ops import band, tile_layout, word_offsets
 from torch.profiler import ProfilerActivity, profile
 
@@ -124,21 +125,24 @@ def test_unaligned_frames_take_the_byte_path(cuda):
 
 
 def test_main_path_launches_every_kernel(cuda, tmp_path):
-    """Batches [camera, camera], [camera, random], [random, random]: the
-    first two through K2/K3, the all-depth-8 one through K4/K5."""
+    """Batches [camera, camera], [camera, random], [random, random]: every
+    encode launches K1, K2 and K4 (gated on the card); from the reader's
+    host depths the first two decode through K3, the all-depth-8 one
+    through K5."""
     frames = np.concatenate([make_content(72, 40, 3), make_content(72, 40, 3, kind="random")])
     band.reset_launches()
     write_video(str(tmp_path / "v.dbde"), frames, device=cuda, batch_size=2)
     _, _, out = read_video(str(tmp_path / "v.dbde"), device=cuda, batch_size=2)
     np.testing.assert_array_equal(out, frames)
-    assert band.LAUNCHES == {"encode_depths": 3, "encode_payload": 2, "decode": 2,
-                             "encode_payload_u8": 1, "decode_u8": 1,
+    assert band.LAUNCHES == {"encode_depths": 3, "encode_payload": 3, "decode": 2,
+                             "encode_payload_u8": 3, "decode_u8": 1,
                              "encode_tiles": 0, "decode_tiles": 0}
 
 
 def test_band_path_launches_no_cumsum(cuda):
-    """The band encode and decode of a mixed batch run K1, K2 and K3 and no
-    scan: the profiler (host and device activities) sees no cumsum."""
+    """The band encode and decode of a mixed batch run K1, K2 and K3 (and K4
+    and K5, gated off by the batch flag) and no scan: the profiler (host and
+    device activities) sees no cumsum."""
     frames = make_content(72, 40, 3)
     codec = DbdeCodec(40, 72, device=cuda)
     enc = codec.encode(frames)  # warm-up: the library is loaded
@@ -150,7 +154,8 @@ def test_band_path_launches_no_cumsum(cuda):
         torch.cuda.synchronize()
     np.testing.assert_array_equal(out, frames)
     assert {k: v for k, v in band.LAUNCHES.items() if v} == {
-        "encode_depths": 1, "encode_payload": 1, "decode": 1}
+        "encode_depths": 1, "encode_payload": 1, "decode": 1, "encode_payload_u8": 1,
+        "decode_u8": 1}
     names = [e.key for e in prof.key_averages()]
     assert any("encode_payload_kernel" in n for n in names), names
     assert not any("cumsum" in n.lower() for n in names), names
@@ -272,8 +277,10 @@ def test_tiles_wrappers_reject_bad_tensors(cuda):
 
 
 def test_sharded_shards_run_their_kernels(cuda):
-    """A 2x2 mesh of one card: the random top band's shards take K4/K5 and
-    the low-depth bottom band's K2/K3; the arrays equal a CPU mesh's; and
+    """A 2x2 mesh of one card: every shard's encode launches K2 and K4 (the
+    flag picks K4 for the random top band's shards, K2 for the low-depth
+    bottom band's); from host depths the top shards decode with K5, the
+    bottom ones with K3; the arrays equal a CPU mesh's; and
     K3 and K5 decode segments whose slots hold 0xDEADBEEF past each
     shard's live words."""
     from dbde_tpu_torch.parallel import decode_sharded, encode_sharded, make_mesh
@@ -285,7 +292,7 @@ def test_sharded_shards_run_their_kernels(cuda):
     band.reset_launches()
     got = encode_sharded(frames, mesh)
     assert {k: v for k, v in band.LAUNCHES.items() if v} == {
-        "encode_depths": 4, "encode_payload": 2, "encode_payload_u8": 2}
+        "encode_depths": 4, "encode_payload": 4, "encode_payload_u8": 4}
     want = encode_sharded(frames, make_mesh(2, 2, devices=[torch.device("cpu")] * 4))
     depth, mins, payload, totals, _, Hp = got
     for g, w in zip(got[:5], want[:5]):
@@ -343,3 +350,114 @@ def test_run_bench_on_the_card(cuda):
     assert r["value"] > 0 and r["encode_gpix_per_s"] > 0
     assert r["device_busy_ms"]["encode"] > 0 and r["device_busy_ms"]["decode"] > 0
     assert torch.cuda.get_device_name(cuda).split()[-1] in r["device"]
+
+
+@pytest.mark.parametrize("name", ["camera", "random ragged", "depth runs across block seams"])
+def test_gated_kernels_write_only_when_selected(cuda, name):
+    """Each gated kernel launched alone with the batch flag set against it
+    writes nothing (sentinels stay, n64 stays); with the flag set for it,
+    it equals its plain version; K1's flag is its plain version's."""
+    frames = GEOMETRIES[name]()
+    B, H, W = frames.shape
+    x = torch.from_numpy(np.ascontiguousarray(frames)).to(cuda)
+    flag = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    d, m = band.encode_depths(x, flag)
+    assert int(flag) == int(bool((band.encode_depths_plain(x)[0] != 8).any()))
+    T = d.shape[1]
+    on, off = (torch.full((1,), v, dtype=torch.int32, device=cuda) for v in (1, 0))
+    fill = np.full((B, 16 * T), SENTINEL, np.uint32)
+    keep = torch.full((B,), -7, dtype=torch.int32, device=cuda)
+    for fn, against in ((band.encode_payload, off), (band.encode_payload_u8, on)):
+        out, n64 = torch.from_numpy(fill.copy()).to(cuda), keep.clone()
+        if fn is band.encode_payload:
+            fn(x, d, m, out=out, n64=n64, mixed=against)
+        else:
+            fn(x, m, out=out, n64=n64, mixed=against)
+        torch.cuda.synchronize()
+        assert (_u32(out) == SENTINEL).all() and torch.equal(n64, keep)
+    p2, n2 = band.encode_payload(x, d, m, mixed=on)
+    q2, r2 = band.encode_payload_plain(x, d, m, mixed=on)
+    n4 = keep.clone()
+    p4 = band.encode_payload_u8(x, m, n64=n4, mixed=off)
+    torch.cuda.synchronize()
+    assert torch.equal(n2, r2) and n4.tolist() == [8 * T] * B
+    for b in range(B):
+        np.testing.assert_array_equal(_u32(p2)[b, : 2 * int(n2[b])], _u32(q2)[b, : 2 * int(n2[b])])
+    np.testing.assert_array_equal(_u32(p4), _u32(band.encode_payload_u8_plain(x, m)))
+    blank = torch.full((B, H, W), 0xA5, dtype=torch.uint8, device=cuda)
+    for out in (band.decode_frames(d, m, p2, H, W, out=blank.clone(), mixed=off),
+                band.decode_frames_u8(m, p4, H, W, out=blank.clone(), mixed=on)):
+        assert torch.equal(out, blank)
+    assert torch.equal(band.decode_frames(d, m, p2, H, W, mixed=on), x)
+    assert torch.equal(band.decode_frames_u8(m, p4, H, W, mixed=off), x)
+
+
+def test_codec_encode_reads_nothing_back(cuda):
+    """Under torch.cuda.set_sync_debug_mode("error") the codec's encode and
+    its decode from host depths raise nothing; the bytes are K2's."""
+    frames = np.concatenate([make_content(72, 40, 2), make_content(72, 40, 1, kind="random")])
+    codec = DbdeCodec(40, 72, device=cuda)
+    enc = codec.encode(frames)  # warm-up
+    depths = enc.depths.cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        enc = codec.encode(frames)
+        pending = codec.decode_dispatch(depths, enc.mins, enc.payload)
+        with pytest.raises(RuntimeError):
+            torch.from_numpy(np.zeros(64, np.uint8)).to(cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    np.testing.assert_array_equal(codec.materialize(pending), frames)
+    x = torch.from_numpy(frames).to(cuda)
+    d, m = band.encode_depths(x)
+    assert pack_frames_bytes(enc) == pack_frames_bytes(EncodedBatch(d, m, *band.encode_payload(x, d, m)))
+
+
+def test_writer_copies_the_callers_frames(cuda, tmp_path):
+    """The caller overwrites its one buffer as soon as write() returns, at
+    pipeline 2: the file is the CPU writer's, byte for byte."""
+    frames = np.concatenate([make_content(72, 40, 4), make_content(72, 40, 2, kind="random")])
+    buf = np.empty((2, 40, 72), np.uint8)
+    with DbdeWriter(str(tmp_path / "gpu.dbde"), 40, 72, device=cuda, pipeline=2) as wr:
+        for i in range(0, 6, 2):
+            buf[:] = frames[i : i + 2]
+            wr.write(buf)
+            buf[:] = 0
+    write_video(str(tmp_path / "cpu.dbde"), frames, device="cpu", batch_size=2)
+    assert (tmp_path / "gpu.dbde").read_bytes() == (tmp_path / "cpu.dbde").read_bytes()
+
+
+def test_host_buffers_are_pinned(cuda, tmp_path):
+    """The reader's pool slots and the codec's staged input are pinned;
+    arrays handed back are the caller's to keep, in pageable memory, so
+    that keeping them holds no pinned memory."""
+    frames = make_content(72, 40, 4)
+    write_video(str(tmp_path / "v.dbde"), frames, device=cuda, batch_size=2)
+    with DbdeReader(str(tmp_path / "v.dbde"), batch_size=2, device=cuda) as rd:
+        headers, arrays, release = rd._read_batch_arrays(pool=_GatedPool())
+        assert all(torch.from_numpy(a).is_pinned() for a in arrays)
+        kept = [out for _, out in rd]
+    np.testing.assert_array_equal(np.concatenate(kept), frames[2:])
+    codec = DbdeCodec(40, 72, device=cuda)
+    assert codec.stage(frames).is_pinned()
+    assert not torch.from_numpy(codec.materialize(torch.from_numpy(frames).to(cuda))).is_pinned()
+    assert not torch.from_numpy(codec.encode(frames).payload_host()).is_pinned()
+    assert not any(torch.from_numpy(out).is_pinned() for out in kept)
+
+
+def test_codec_keeps_the_callers_stream(cuda):
+    """Under a stream of the caller's, the codec's kernels and copies run on
+    it, and the caller's current stream is the same after each call; the
+    frames come back."""
+    frames = np.concatenate([make_content(72, 40, 2), make_content(72, 40, 1, kind="random")])
+    codec = DbdeCodec(40, 72, device=cuda)
+    mine = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(mine):
+        enc = codec.encode(frames)
+        assert torch.cuda.current_stream(cuda) == mine
+        pending = codec.decode_dispatch(enc.depths.cpu().numpy(), enc.mins, enc.payload)
+        assert torch.cuda.current_stream(cuda) == mine
+        out = codec.materialize(pending)
+        assert torch.cuda.current_stream(cuda) == mine
+    np.testing.assert_array_equal(out, frames)

@@ -175,10 +175,18 @@ def test_depth8_band_beside_camera_band(monkeypatch):
     """A frame whose top band is random (every tile depth 8) and bottom band
     depth-5 content: one shard takes the uniform pair, the other the general
     pair, and the stream is still the oracle's."""
-    calls = []
+    calls = []  # the wrapper calls that do the work: a gated call whose flag
+    # selects the other kernel of its pair writes nothing
     for name in ("encode_payload", "encode_payload_u8", "decode_frames", "decode_frames_u8"):
         fn = getattr(band, name)
-        monkeypatch.setattr(band, name, lambda *a, _fn=fn, _n=name, **k: (calls.append(_n), _fn(*a, **k))[1])
+        general = name in ("encode_payload", "decode_frames")
+
+        def counted(*a, _fn=fn, _n=name, _general=general, **k):
+            if band._runs(k.get("mixed"), _general):
+                calls.append(_n)
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(band, name, counted)
     frames = np.concatenate([make_content(40, 16, 2, kind="random"), _frames(2, 16, 40)], axis=1)
     mesh = _mesh(1, 2)
     depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)

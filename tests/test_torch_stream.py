@@ -19,6 +19,7 @@ from dbde_tpu_torch.bench_core import make_depth_runs
 from dbde_tpu.golden_vectors import GOLDEN_8x16_FILE, GOLDEN_8x16_IMAGE, README_10x10_IMAGE
 from dbde_tpu_torch import DbdeReader, DbdeWriter, read_video, write_video
 from dbde_tpu_torch.codec import unpack_frames_bytes
+from dbde_tpu_torch.format import VIDEO_HEADER_BYTES
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, H, W = 5, 20, 28  # batch 2 leaves a ragged tail batch of 1
@@ -197,13 +198,22 @@ def test_chip_smoke_rehearsal_on_cpu():
                                   "encode_payload_u8", "decode_u8",
                                   "encode_tiles", "decode_tiles"), 0)
     frames = np.concatenate([make_content(40, 24, 3), make_content(40, 24, 2, kind="random")])
-    launches, _ = smoke.check_main_path(cpu, frames, batch=2)
+    launches, _, digest, pinned = smoke.check_main_path(cpu, frames, batch=2)
+    # a CPU codec pins nothing
+    assert pinned == {"cached after read_video": 0, "added by read_video": 0}
     assert set(launches.values()) == {0}
-    # what phase 3 requires on the GPU: the mixed batch [camera, random]
-    # takes the general pair, the all-random batch the uniform pair
+    times = smoke.time_pipelines(cpu, frames, 2, digest, depths=(2, 1))
+    assert {k: len(v) for k, v in times.items()} == {2: 1, 1: 1}
+    split = smoke.stream_split(cpu, frames, 2, digest)
+    assert {leg: set(stages) for leg, stages in split.items()} == {
+        "write": {"stage", "h2d", "kernels", "d2h", "write"},
+        "read": {"parse", "h2d", "kernels", "d2h", "concatenate"}}
+    # what phase 3 requires on the GPU: every encode launches K2 and K4
+    # (gated on the device); from the reader's host depths the mixed batch
+    # [camera, random] decodes with K3, the all-random batch with K5
     assert smoke.expected_launches(frames, batch=2) == {
-        "encode_depths": 3, "encode_payload": 2, "decode": 2,
-        "encode_payload_u8": 1, "decode_u8": 1, "encode_tiles": 0, "decode_tiles": 0}
+        "encode_depths": 3, "encode_payload": 3, "decode": 2,
+        "encode_payload_u8": 3, "decode_u8": 1, "encode_tiles": 0, "decode_tiles": 0}
     launches, _ = smoke.check_tiles_path(cpu, [make_content(40, 24, 2),
                                                make_content(40, 24, 2, kind="random")])
     assert set(launches.values()) == {0}
@@ -232,12 +242,12 @@ def test_chip_smoke_sharded_rehearsal_on_cpu(monkeypatch):
     assert all(set(n.values()) == {0} for n in launches.values())
     assert set(seconds) == {"write_video", "write_video_sharded", "iter_video_sharded",
                             "read_video"}
-    # on a 2x2 GPU mesh: 4 batches of 4 shards; the random batch's bands
-    # take the uniform pair, and the tail's zero record makes its read
-    # shard general
+    # on a 2x2 GPU mesh: 4 batches of 4 shards, each encode launching K2
+    # and K4 (gated on the device); the random batch's bands decode with
+    # K5, and the tail's zero record makes its read shard general
     assert smoke.expected_sharded_launches(frames, 2, 2, 2) == {
-        "encode_depths": 16, "encode_payload": 12, "decode": 12,
-        "encode_payload_u8": 4, "decode_u8": 4, "encode_tiles": 0, "decode_tiles": 0}
+        "encode_depths": 16, "encode_payload": 16, "decode": 12,
+        "encode_payload_u8": 16, "decode_u8": 4, "encode_tiles": 0, "decode_tiles": 0}
     monkeypatch.setattr(smoke, "_time_ms", lambda fn, iters: (fn(), 1.0)[1])
     assert smoke.time_shard_encodes(cpu, camera) == (1.0, 1.0)
 
@@ -300,3 +310,128 @@ def test_chip_smoke_band_sizes_on_cpu(monkeypatch):
         ("camera", "runs"), {"encode_payload": 1.0, "decode": 1.0})
     assert smoke.prefix_bytes(runs) == 2 * (1024 + 2048)
     assert smoke.prefix_bytes(np.zeros((2, 4096, 4096), np.uint8)) == 2 * 1024 * 256 * 255 // 2
+
+
+# -- the pipelined writer and reader (pipeline depths 1 to 3) -----------------
+
+PH, PW = 19, 37  # ragged on both edges: 3 x 5 tiles
+
+
+@pytest.fixture(scope="module")
+def pipeline_frames():
+    """Three batches of two: every tile depth 8; mixed depths; mixed with
+    one frame whose tiles are all depth 8 (the batch flag must still say
+    mixed)."""
+    random = make_content(PW, PH, 3, kind="random")
+    mixed = make_adversarial(PW, PH, 3, maxd=7, seed=21)
+    return np.concatenate([random[:2], mixed[:2], mixed[2:], random[2:]])
+
+
+@pytest.fixture(scope="module")
+def pipeline_jax_file(pipeline_frames, tmp_path_factory):
+    """The JAX package's writer on its host path (no compile)."""
+    path = tmp_path_factory.mktemp("jaxp") / "p.dbde"
+    jax_stream.write_video(str(path), pipeline_frames, frame_hz=250.0, device=False,
+                           batch_size=2)
+    return path.read_bytes()
+
+
+@pytest.mark.parametrize("sink", ["file", "bytesio"])
+@pytest.mark.parametrize("pipeline", [1, 2, 3])
+def test_writer_pipeline_bytes_match_jax(pipeline_frames, pipeline_jax_file, tmp_path,
+                                         pipeline, sink):
+    path = tmp_path / "p.dbde"
+    target = str(path) if sink == "file" else io.BytesIO()
+    with DbdeWriter(target, PH, PW, frame_hz=250.0, device="cpu", pipeline=pipeline) as wr:
+        for i in range(0, len(pipeline_frames), 2):
+            wr.write(pipeline_frames[i : i + 2])
+    got = path.read_bytes() if sink == "file" else target.getvalue()
+    assert got == pipeline_jax_file
+
+
+@pytest.mark.parametrize("pipeline", [1, 2])
+def test_writer_caller_may_overwrite_its_frames(pipeline_frames, pipeline_jax_file, pipeline):
+    """The caller reuses one buffer for every batch, overwriting it as soon
+    as write() returns: the file is unchanged."""
+    f = io.BytesIO()
+    buf = np.empty((2, PH, PW), np.uint8)
+    with DbdeWriter(f, PH, PW, frame_hz=250.0, device="cpu", pipeline=pipeline) as wr:
+        for i in range(0, len(pipeline_frames), 2):
+            buf[:] = pipeline_frames[i : i + 2]
+            wr.write(buf)
+            buf[:] = 0xFF
+    assert f.getvalue() == pipeline_jax_file
+
+
+@pytest.mark.parametrize("pipeline", [1, 2, 3])
+def test_reader_yielded_arrays_are_the_callers(pipeline_frames, pipeline_jax_file, tmp_path,
+                                               pipeline):
+    """Every yielded array, all kept until the end, still holds its frames:
+    none aliases a pooled slot or buffer that a later batch overwrites."""
+    path = tmp_path / "p.dbde"
+    path.write_bytes(pipeline_jax_file)
+    with DbdeReader(str(path), batch_size=2, device="cpu", pipeline=pipeline) as rd:
+        kept = [out for _, out in rd]
+    assert len(kept) == 3
+    np.testing.assert_array_equal(np.concatenate(kept), pipeline_frames)
+
+
+@pytest.mark.parametrize("pipeline", [1, 2, 3])
+def test_pool_slot_released_only_after_its_materialize(pipeline_frames, pipeline_jax_file,
+                                                       tmp_path, monkeypatch, pipeline):
+    """The release gate: a pooled parse slot goes back to the pool only
+    after the batch decoded from it is materialized, and is never handed
+    out again before; ``pipeline`` batches are dispatched ahead."""
+    from dbde_tpu_torch import stream
+    from dbde_tpu_torch.codec import DbdeCodec
+
+    events, slot_of = [], {}
+    dispatch, materialize = DbdeCodec.decode_dispatch, DbdeCodec.materialize
+    acquire, release = stream._GatedPool.acquire, stream._GatedPool.release
+
+    def spy_dispatch(self, depths, mins, payload):
+        pending = dispatch(self, depths, mins, payload)
+        slot_of[id(pending)] = id(depths)
+        events.append(("dispatch", id(depths)))
+        return pending
+
+    def spy_materialize(self, pending):
+        events.append(("materialize", slot_of[id(pending)]))
+        return materialize(self, pending)
+
+    def spy_acquire(self, key):
+        slot = acquire(self, key)
+        if slot is not None:
+            events.append(("reuse", id(slot[0])))
+        return slot
+
+    def spy_release(self, key, slot):
+        events.append(("release", id(slot[0])))
+        release(self, key, slot)
+
+    monkeypatch.setattr(DbdeCodec, "decode_dispatch", spy_dispatch)
+    monkeypatch.setattr(DbdeCodec, "materialize", spy_materialize)
+    monkeypatch.setattr(stream._GatedPool, "acquire", spy_acquire)
+    monkeypatch.setattr(stream._GatedPool, "release", spy_release)
+    path = tmp_path / "p.dbde"  # the records three times: nine batches, so slots are reused
+    path.write_bytes(pipeline_jax_file + pipeline_jax_file[VIDEO_HEADER_BYTES:] * 2)
+    frames = np.concatenate([pipeline_frames] * 3)
+    with DbdeReader(str(path), batch_size=2, device="cpu", pipeline=pipeline) as rd:
+        _, out = rd.read_all()
+    np.testing.assert_array_equal(out, frames)
+    in_use, done, ahead = set(), set(), 0
+    for kind, slot in events:
+        if kind == "dispatch":
+            assert slot not in in_use
+            in_use.add(slot)
+            ahead = max(ahead, len(in_use))
+        elif kind == "materialize":
+            done.add(slot)
+        elif kind == "release":
+            assert slot in done, "a slot was released before its batch was materialized"
+            in_use.discard(slot)
+            done.discard(slot)
+        else:  # reuse
+            assert slot not in in_use, "a slot in flight was handed out again"
+    assert [k for k, _ in events].count("reuse") > 0
+    assert ahead == pipeline + 1  # the batch being materialized and `pipeline` ahead

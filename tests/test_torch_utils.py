@@ -292,3 +292,61 @@ def test_measure_device_seconds_profiles_again_when_no_device_record_arrives(
     else:
         assert profiling.measure_device_seconds(lambda: None, reps=4) == want
     assert len(sessions) == min(empty + 1, profiling.PROFILE_SESSIONS)
+
+
+# -- python -m dbde_tpu_torch.bench, the counterpart of bench.py ---------------
+
+
+def _bench_script():
+    """The repository's bench.py (the JAX package's bench) as a module, not run."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "bench.py")
+    spec = importlib.util.spec_from_file_location("jax_bench_script", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_port_bench_line_has_bench_py_keys(stub_timers):
+    """At a tiny geometry on the CPU: the camera config's run_bench result
+    at the top level and a ``configs`` object with bench.py's three names,
+    each record with the keys of bench.py's own ``_sub``."""
+    from dbde_tpu_torch import bench as port_bench
+
+    tiny = tuple((key, dict(kw, width=W, height=H, frames=2, iters=1))
+                 for key, kw in port_bench.CONFIGS)
+    line = port_bench.run(tiny, device="cpu")
+    assert set(line) == JAX_KEYS["run_bench"] | {"device_busy_ms", "configs"}
+    assert [key for key, _ in port_bench.CONFIGS] == ["camera_2048", "random_2048",
+                                                      "random_2536x2048"]
+    assert set(line["configs"]) == {key for key, _ in port_bench.CONFIGS}
+    keys = set(_bench_script()._sub(line))
+    assert all(set(record) == keys for record in line["configs"].values())
+    assert line["content"] == "camera" and line["configs"]["random_2048"]["content"] == "random"
+    assert line["configs"]["camera_2048"]["decode_gpix_per_s"] == line["value"]
+    assert {kw["width"] for _, kw in port_bench.CONFIGS} == {2048, 2536}
+
+
+def test_port_bench_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible; this checks the error without one")
+    from dbde_tpu_torch import bench as port_bench
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_bench.main()
+
+
+def test_bench_raises_when_the_profiler_delivers_nothing(monkeypatch):
+    """A profiler that delivers no device records in any session fails the
+    bench leg: no line is printed with a device metric missing."""
+    def no_records(fn, reps):
+        fn()
+        raise RuntimeError("the profiler saw no device activity in 3 sessions")
+
+    monkeypatch.setattr(bench_core, "cuda_event_seconds", lambda fn, reps: (fn(), 2e-3)[1])
+    monkeypatch.setattr(bench_core, "measure_device_seconds", no_records)
+    with pytest.raises(RuntimeError, match="no device activity"):
+        bench_core._measure(lambda: None)
+    assert bench_core._busy_ms(encode=1e-3, decode=2.5e-4) == {"encode": 1.0, "decode": 0.25}
