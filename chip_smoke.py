@@ -82,6 +82,13 @@ Phases, one line each, in order:
      and python -m dbde_tpu_torch.bench (bench.py's keys).  The phase
      first starts torch.profiler once, timed on its own, so that the first
      bench does not pay for it
+  7  the randomized soak: python -m dbde_tpu_torch.soak --seed 0 --seconds 60
+     in a fresh interpreter that imports no jax, every case exact (random
+     geometries and contents, both backends, every decode route, the block
+     seams, a batch past 2**31 bytes, the stream layer and the sharded
+     path), then the sharded round-trip step's device time on a 1x1 mesh
+     within 1.15x DbdeCodec.roundtrip's (tools/tpu_sharded_check.py (c));
+     its summary lines are printed
 
 Any failure raises, so the script exits non-zero without the final line.
 Phase 5's and phase 6's launch counts are lines of their own; then a line
@@ -117,6 +124,7 @@ from dbde_tpu_torch.codec import (
     HostCopy,
     all_depth8,
     pack_frames_bytes,
+    pinned_cache_bytes,
     record_iovecs,
     unpack_frames_bytes,
 )
@@ -455,11 +463,11 @@ def check_main_path(device: torch.device, frames: np.ndarray, batch: int):
         band.reset_launches()
         t0 = time.perf_counter()
         write_video(path, frames, frame_hz=1000.0, device=device, batch_size=batch)
-        before = _pinned_bytes(device)
+        before = pinned_cache_bytes(device)
         t1 = time.perf_counter()
         vh, headers, out = read_video(path, device=device, batch_size=batch)
         seconds = (t1 - t0, time.perf_counter() - t1)
-        after = _pinned_bytes(device)
+        after = pinned_cache_bytes(device)
         pinned = {"cached after read_video": after, "added by read_video": after - before}
         launches = dict(band.LAUNCHES)
         want = b"".join(ref_numpy.pack_frame(i, frames[i]) for i in range(min(2, N)))
@@ -473,14 +481,6 @@ def check_main_path(device: torch.device, frames: np.ndarray, batch: int):
     _require(got == want, "first records differ from ref_numpy.pack_frame")
     _require(launches == expected, f"launches {launches}, expected {expected}")
     return launches, seconds, digest, pinned
-
-
-def _pinned_bytes(device: torch.device) -> int:
-    """Bytes of pinned memory in torch's pinned-memory cache, blocks in use
-    and free alike (0 on the CPU)."""
-    if device.type != "cuda":
-        return 0
-    return torch.cuda.host_memory_stats().get("allocated_bytes.current", 0)
 
 
 def time_pipelines(device: torch.device, frames: np.ndarray, batch: int, digest: str,
@@ -1242,13 +1242,25 @@ def run_port_bench(card: str) -> dict[str, int]:
     return launches
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SOAK = ("-m", "dbde_tpu_torch.soak", "--seed", "0", "--seconds", "60")
+
+
 def start_cli_subprocess(path: str) -> subprocess.Popen:
     """Start ``python -X importtime -m dbde_tpu_torch.cli info path`` in a
     fresh interpreter; :func:`finish_cli_subprocess` checks it.  Use it as
     a context manager, which waits for it."""
     return subprocess.Popen([sys.executable, "-X", "importtime", "-m", "dbde_tpu_torch.cli",
-                             "info", path], cwd=os.path.dirname(os.path.abspath(__file__)),
+                             "info", path], cwd=ROOT,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _require_no_jax(importtime: str, what: str) -> None:
+    """``-X importtime``'s output (stderr) shows no jax or JAX-package import."""
+    roots = {line.rsplit("|", 1)[-1].strip().split(".")[0]
+             for line in importtime.splitlines() if line.startswith("import time:")}
+    _require(not roots & {"jax", "jaxlib", "dbde_tpu"},
+             f"{what} imported {sorted(roots & {'jax', 'jaxlib', 'dbde_tpu'})}")
 
 
 def finish_cli_subprocess(proc: subprocess.Popen) -> None:
@@ -1257,10 +1269,27 @@ def finish_cli_subprocess(proc: subprocess.Popen) -> None:
     out, err = proc.communicate(timeout=120)
     _require(proc.returncode == 0 and out.startswith("geometry:"),
              f"python -m dbde_tpu_torch.cli info: exit {proc.returncode}, {err[-2000:]}")
-    roots = {line.rsplit("|", 1)[-1].strip().split(".")[0]
-             for line in err.splitlines() if line.startswith("import time:")}
-    _require(not roots & {"jax", "jaxlib", "dbde_tpu"},
-             f"the CLI subprocess imported {sorted(roots & {'jax', 'jaxlib', 'dbde_tpu'})}")
+    _require_no_jax(err, "the CLI subprocess")
+
+
+def run_soak() -> tuple[list[str], int, float]:
+    """Phase 7: ``python -m dbde_tpu_torch.soak --seed 0 --seconds 60`` in a
+    fresh interpreter under ``-X importtime``.  It must exit 0 with its
+    sharded step check (c) line and ``SOAK OK`` last, and import no jax and
+    nothing of the JAX package.  Returns its lines other than the cases',
+    the number of cases and the seconds it took."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-X", "importtime", *SOAK], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    summary = [line for line in lines if not line.startswith("ok case ")]
+    errors = [line for line in proc.stderr.splitlines() if not line.startswith("import time:")]
+    _require(proc.returncode == 0 and summary and summary[-1].startswith("SOAK OK")
+             and any(line.startswith("sharded step check (c)") for line in summary),
+             f"the soak: exit {proc.returncode}\n" + "\n".join(summary[-20:] + errors[-40:]))
+    _require_no_jax(proc.stderr, "the soak's subprocess")
+    return summary, len(lines) - len(summary), seconds
 
 
 def main() -> int:
@@ -1330,7 +1359,7 @@ def main() -> int:
         parts = ", ".join(f"{k} {v:.4f} s ({v / total:.1%})" for k, v in stages.items())
         print(f"phase 3 split, {leg}, one instrumented pass, each stage synchronised: {parts}; "
               f"sum {total:.4f} s ({n / total:.1f} frames/s) on {card}", flush=True)
-    print(f"phase 3 end: torch's pinned-memory cache holds {_pinned_bytes(device)} bytes; "
+    print(f"phase 3 end: torch's pinned-memory cache holds {pinned_cache_bytes(device)} bytes; "
           f"the frames materialize handed back were pageable", flush=True)
 
     tiles_launches, t_tiles = check_tiles_path(device, [camera16, random16])
@@ -1439,6 +1468,13 @@ def main() -> int:
     bench_launches = {k: v + port_launches[k] for k, v in bench_launches.items()}
     print("phase 6 launches: " + json.dumps({"cli files": cli_launches, "bench": bench_launches}))
     print(f"phase 6 took {time.perf_counter() - t6:.1f} s", flush=True)
+
+    torch.cuda.empty_cache()  # the soak's process gets the card's memory
+    summary, n_cases, seconds = run_soak()
+    for line in summary:
+        print(f"phase 7 soak: {line}")
+    print(f"phase 7 soak: python {' '.join(SOAK)} ran {n_cases} cases, every check exact, in a "
+          f"subprocess that imported no jax ({seconds:.1f} s)", flush=True)
 
     _require("jax" not in sys.modules, "jax was imported")
     _require(not any(m == "dbde_tpu" or m.startswith("dbde_tpu.") for m in sys.modules),

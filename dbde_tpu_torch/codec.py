@@ -97,6 +97,15 @@ class HostCopy:
         return [torch.empty(h.shape, dtype=h.dtype).copy_(h).numpy() for h in self.host]
 
 
+def pinned_cache_bytes(device: torch.device) -> int:
+    """Bytes of pinned memory in torch's pinned-memory cache, blocks in use
+    and free alike, where :class:`HostCopy` and :meth:`DbdeCodec.stage`
+    take theirs (0 on the CPU)."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.host_memory_stats().get("allocated_bytes.current", 0)
+
+
 def _host(a) -> np.ndarray:
     """A tensor or array → a host array for immediate use: on a CUDA
     device a view of pinned memory that goes back to torch's pinned cache

@@ -43,7 +43,7 @@ import collections
 import numpy as np
 import torch
 
-from ..codec import DbdeCodec, _host, record_iovecs, resolve_device
+from ..codec import DbdeCodec, HostCopy, _host, record_iovecs, resolve_device
 from ..format import VideoHeader, tile_grid
 from ..ops.bitpack import MAX_WORDS_PER_TILE
 from ..stream import DbdeReader, _writev_all
@@ -245,13 +245,16 @@ def decode_sharded_dispatch(depths, mins, segments, mesh: Mesh, H: int, W: int,
 
 def decode_sharded_materialize(pending, H: int, W: int) -> np.ndarray:
     """Wait for a :func:`decode_sharded_dispatch` value → (B, H, W) u8:
-    every shard copied to the host into its place, cropped to the frame."""
+    every shard copied to the host into its place, cropped to the frame.
+    Every shard's copy goes through pinned memory (:class:`HostCopy`) and
+    is enqueued before the first is waited for."""
     n_data, n_tiles = len(pending), len(pending[0])
     B_loc, L, Wd = pending[0][0].shape
     out = np.empty((n_data * B_loc, n_tiles * L, Wd), np.uint8)
-    for d, row in enumerate(pending):
-        for t, band in enumerate(row):
-            out[d * B_loc:(d + 1) * B_loc, t * L:(t + 1) * L] = band.cpu().numpy()
+    copies = [[HostCopy([band]) for band in row] for row in pending]
+    for d, row in enumerate(copies):
+        for t, copy in enumerate(row):
+            out[d * B_loc:(d + 1) * B_loc, t * L:(t + 1) * L] = copy.wait()[0]
     return out[:, :H, :W]
 
 
