@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's codec paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's codec paths once on the visible NVIDIA GPUs.
 
     python3 chip_smoke.py        # from the repository root; needs CUDA and nvcc
 
-Phases, one line each, in order:
-  0  device: the card's name and power limit (nvidia-smi), torch and CUDA
+One card is enough; with more visible, the kernels are held on each and
+the sharded path lays its meshes over them (one slot a card where they
+suffice).  Phases, one line each, in order:
+  0  device: the card's name and power limit (nvidia-smi), torch and CUDA;
+     each card's name and power limit, and with several cards whether each
+     pair has peer access
   1  build: the CUDA kernels, compiled with nvcc from dbde_tpu_torch/csrc
      (one nvcc a source, in parallel), and the stream layer's native IO
-     library (g++)
+     library (g++); the current device of the kernel library's own CUDA
+     runtime under torch.cuda.device(i) for each card
   2  each kernel against its plain PyTorch version on the same CUDA
-     tensors, exact equality, at the flagship, narrow, ragged and
-     block-seam geometries: K1 encode_depths, K2 encode_payload, K3
+     tensors, exact equality, on cuda:0 at the flagship, narrow, ragged and
+     block-seam geometries (on each further card at 16x2048², 8x2048x320
+     and two block-seam geometries): K1 encode_depths, K2 encode_payload, K3
      decode, the uniform depth-8 pair K4 encode_payload_u8 and K5
      decode_u8, and the tiles backend's K6 encode_tiles and K7
      decode_tiles.  K1's batch flag ("mixed": some tile not depth 8) must
@@ -57,8 +63,9 @@ Phases, one line each, in order:
      bytes their blocks read from L2 to sum the frame's earlier depths;
      then the band and tiles paths side by side at 8×2048×W camera, W ∈
      {320, 256, 192, 128}
-  5  the sharded path (dbde_tpu_torch.parallel) on meshes whose every slot
-     is the one card: a 2×2 mesh writes 32 camera, 16 random and 1 camera
+  5  the sharded path (dbde_tpu_torch.parallel) on meshes laid over the
+     visible cards in turn (parallel.mesh_slots: over four cards each slot
+     has its own, on one card every slot is that card): a 2×2 mesh writes 32 camera, 16 random and 1 camera
      2048² frames with write_video_sharded (batch 16; the last batch pads
      the data axis) and walks them back with iter_video_sharded, the file
      equal to write_video's byte for byte and each shard's launches as the
@@ -67,7 +74,9 @@ Phases, one line each, in order:
      sharded_roundtrip_step on the 2×2 mesh with the single-device n64;
      graft_entry.dryrun_multichip(8) and graft_entry.entry(); the sharded
      and single-device write and read times, and the shard encodes through
-     DbdeCodec.encode beside K1 + K2 alone
+     DbdeCodec.encode beside K1 + K2 alone; with two or more cards, the
+     sharded write and read frames/s on meshes of 1, 2 and 4 distinct cards
+     (1x1, 2x1, 4x1, 2x2) beside write_video/read_video, in turns
   6  the CLI on the card, driven in-process through dbde_tpu_torch.cli.main:
      golden (3 frames), info --scan and decode against GOLDEN_8x16_IMAGE;
      at the five geometries of tools/tpu_quickcheck.py (2048² camera and
@@ -87,8 +96,10 @@ Phases, one line each, in order:
      geometries and contents, both backends, every decode route, the block
      seams, a batch past 2**31 bytes, the stream layer and the sharded
      path), then the sharded round-trip step's device time on a 1x1 mesh
-     within 1.15x DbdeCodec.roundtrip's (tools/tpu_sharded_check.py (c));
-     its summary lines are printed
+     within 1.15x DbdeCodec.roundtrip's (tools/tpu_sharded_check.py (c)),
+     then check (d): with two or more cards, the step on a mesh of distinct
+     cards exact and no card busier than the single card's round trip (one
+     card: a line saying it needs two); its summary lines are printed
 
 Any failure raises, so the script exits non-zero without the final line.
 Phase 5's and phase 6's launch counts are lines of their own; then a line
@@ -133,6 +144,7 @@ from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_IMAGE, README_10x10_IMAGE
 from dbde_tpu_torch.native import binding as native_binding
 from dbde_tpu_torch.ops import band, tile_layout
 from dbde_tpu_torch.ops.build import build
+from dbde_tpu_torch.ops.build import load as build_load
 from dbde_tpu_torch.ops.payload import word_offsets
 from dbde_tpu_torch.stream import _GatedPool, _writev_all
 from dbde_tpu_torch.parallel import (
@@ -141,11 +153,13 @@ from dbde_tpu_torch.parallel import (
     encode_sharded,
     iter_video_sharded,
     make_mesh,
+    mesh_slots,
     sharded_roundtrip_step,
+    visible_devices,
     write_video_sharded,
 )
 from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_FILE
-from dbde_tpu_torch.utils.profiling import cuda_event_seconds, measure_device_seconds
+from dbde_tpu_torch.utils.profiling import card_name, cuda_event_seconds, measure_device_seconds
 from dbde_tpu_torch.utils.visualize import read_pgm
 
 BAND_SOURCE = "dbde_tpu_torch/csrc/dbde_kernels.cu"
@@ -386,7 +400,7 @@ def check_kernels(device: torch.device, geometries, seed: int = 0) -> dict[str, 
 
         for name, e in zip(errs, (e1, e2, e3, e4, e5, e6, e7)):
             errs[name] = max(errs[name], e, gate_errs.get(name, 0))
-        print(f"phase 2 {label}: max |kernel - plain| K1 {e1} K2 {e2} K3 {e3} K4 {e4} K5 {e5} "
+        print(f"phase 2 {label} on {device}: max |kernel - plain| K1 {e1} K2 {e2} K3 {e3} K4 {e4} K5 {e5} "
               f"K6 {e6} K7 {e7}; gate cases {gate_errs}; T {T}, Tp {tp}, "
               f"n64 max {int(n64.max())}, stride {S}, all depth 8: {uniform}", flush=True)
     _require(max(errs.values()) <= TOLERANCE, f"kernels disagree with plain: {errs}")
@@ -818,7 +832,9 @@ def _roundtrip_launches(frames: np.ndarray, n_data: int, n_tiles: int,
 
 def check_sharded_path(device: torch.device, frames: np.ndarray, batch: int,
                        ragged: np.ndarray, dryrun_devices: int = 8):
-    """Phase 5: the sharded path on meshes whose every slot is ``device``.
+    """Phase 5: the sharded path on meshes laid over every visible device
+    of ``device``'s type in turn (``mesh_slots``): over four or more cards
+    each slot has a card of its own, on one card every slot is that card.
 
     (a) a 2x2 mesh writes ``frames`` with write_video_sharded in batches of
     ``batch`` and walks the file back with iter_video_sharded: the file is
@@ -837,7 +853,8 @@ def check_sharded_path(device: torch.device, frames: np.ndarray, batch: int,
     same frames, file IO included."""
     on_gpu = device.type == "cuda"
     none = dict.fromkeys(band.LAUNCHES, 0)
-    mesh22 = make_mesh(2, 2, devices=[device] * 4)
+    slots = mesh_slots(4, visible_devices(device))
+    mesh22 = make_mesh(2, 2, devices=slots)
     launches, seconds = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         single, sharded = os.path.join(tmp, "single.dbde"), os.path.join(tmp, "sharded.dbde")
@@ -861,7 +878,7 @@ def check_sharded_path(device: torch.device, frames: np.ndarray, batch: int,
     want = expected_sharded_launches(frames, batch, 2, 2) if on_gpu else none
     _require(launches["a"] == want, f"sharded file launches {launches['a']}, expected {want}")
 
-    mesh14 = make_mesh(1, 4, devices=[device] * 4)
+    mesh14 = make_mesh(1, 4, devices=slots)
     B, H, W = ragged.shape
     band.reset_launches()
     depth, mins, payload, totals, _, Hp = encode_sharded(ragged, mesh14)
@@ -901,6 +918,46 @@ def check_sharded_path(device: torch.device, frames: np.ndarray, batch: int,
             "decode_u8"} if on_gpu else set()
     _require(used == want, f"dry run and entry launched {launches['d']}")
     return launches, seconds
+
+
+def time_distinct_meshes(frames: np.ndarray, batch: int) -> dict[str, list[tuple[float, float]]]:
+    """Phase 5, where two or more cards are visible: write_video_sharded and
+    iter_video_sharded of ``frames`` on meshes of distinct cards (1x1, 2x1,
+    4x1 and 2x2, each that the cards fill, one slot a card), beside
+    write_video and read_video on cuda:0, host clock, file IO included, in
+    turns over two passes (the meshes forward, then back).  Every file must
+    equal write_video's and every read return the frames.  Returns {mesh:
+    [(write s, read s) a pass]}."""
+    cards = visible_devices("cuda")
+    shapes = [sh for sh in ((1, 1), (2, 1), (4, 1), (2, 2)) if sh[0] * sh[1] <= len(cards)]
+    out: dict[str, list[tuple[float, float]]] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        single = os.path.join(tmp, "single.dbde")  # the first write_video's file
+        order = ["single", *shapes, *shapes[::-1], "single"]
+        for i, shape in enumerate(order):
+            # a new file each pass: truncating one would time freeing its pages
+            path = single if i == 0 else os.path.join(tmp, f"pass{i}.dbde")
+            t0 = time.perf_counter()
+            if shape == "single":
+                name = "write_video/read_video on cuda:0"
+                write_video(path, frames, frame_hz=1000.0, device=cards[0], batch_size=batch)
+                t1 = time.perf_counter()
+                _, _, got = read_video(path, device=cards[0], batch_size=batch)
+            else:
+                mesh = make_mesh(*shape, devices=mesh_slots(shape[0] * shape[1], cards))
+                name = (f"{shape[0]}x{shape[1]} mesh on cuda:"
+                        + ",".join(str(d.index) for d in mesh.devices.flat))
+                write_video_sharded(path, frames, mesh, frame_hz=1000.0, batch_size=batch)
+                t1 = time.perf_counter()
+                got = np.concatenate([c for _, c in iter_video_sharded(path, mesh,
+                                                                       batch_size=batch)])
+            t2 = time.perf_counter()
+            _require(filecmp.cmp(single, path, shallow=False) and np.array_equal(got, frames),
+                     f"{name}: the file differs from write_video's or the read from the frames")
+            if path != single:
+                os.remove(path)
+            out.setdefault(name, []).append((t1 - t0, t2 - t1))
+    return out
 
 
 def time_shard_encodes(device: torch.device, frames: np.ndarray, iters: int = 20):
@@ -1275,8 +1332,8 @@ def finish_cli_subprocess(proc: subprocess.Popen) -> None:
 def run_soak() -> tuple[list[str], int, float]:
     """Phase 7: ``python -m dbde_tpu_torch.soak --seed 0 --seconds 60`` in a
     fresh interpreter under ``-X importtime``.  It must exit 0 with its
-    sharded step check (c) line and ``SOAK OK`` last, and import no jax and
-    nothing of the JAX package.  Returns its lines other than the cases',
+    sharded step check (c) and (d) lines and ``SOAK OK`` last, and import
+    no jax and nothing of the JAX package.  Returns its lines other than the cases',
     the number of cases and the seconds it took."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-X", "importtime", *SOAK], cwd=ROOT,
@@ -1286,15 +1343,31 @@ def run_soak() -> tuple[list[str], int, float]:
     summary = [line for line in lines if not line.startswith("ok case ")]
     errors = [line for line in proc.stderr.splitlines() if not line.startswith("import time:")]
     _require(proc.returncode == 0 and summary and summary[-1].startswith("SOAK OK")
-             and any(line.startswith("sharded step check (c)") for line in summary),
+             and any(line.startswith("sharded step check (c)") for line in summary)
+             and any(line.startswith("sharded step check (d)") for line in summary),
              f"the soak: exit {proc.returncode}\n" + "\n".join(summary[-20:] + errors[-40:]))
     _require_no_jax(proc.stderr, "the soak's subprocess")
     return summary, len(lines) - len(summary), seconds
 
 
+def runtime_devices(cards) -> dict[str, int]:
+    """Phase 1: the current device of the kernel library's own (static) CUDA
+    runtime while torch has each card current, asked before any kernel is
+    launched on cards other than cuda:0.  The launchers rely on it
+    following torch's: they launch on that device's stream, and K2, K3 and
+    K6 raise their shared-memory limit on it (``ops/launch.py``)."""
+    lib = build_load()
+    seen = {}
+    for c in cards:
+        with torch.cuda.device(c):
+            seen[str(c)] = lib.dbde_current_device()
+    return seen
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA GPU and none is visible")
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1303,6 +1376,14 @@ def main() -> int:
         else f"nvidia-smi failed: {smi.stderr.strip()}"
     print(f"phase 0 device: {kind}; torch {torch.__version__}; CUDA {torch.version.cuda}")
     print(card, flush=True)
+    cards = visible_devices("cuda")
+    names = {c.index: card_name(c.index) for c in cards}
+    print("phase 0 cards: " + "; ".join(f"cuda:{i} {name}" for i, name in names.items()))
+    if len(cards) > 1:
+        peers = {f"cuda:{i}->cuda:{j}": torch.cuda.can_device_access_peer(i, j)
+                 for i in names for j in names if i != j}
+        print(f"phase 0 peer access (torch.cuda.can_device_access_peer): {json.dumps(peers)}",
+              flush=True)
 
     t0 = time.perf_counter()
     path, log = build(ptxas_verbose=True)
@@ -1312,6 +1393,11 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     band.encode_depths(torch.zeros((1, 8, 8), dtype=torch.uint8, device=device))  # loads the library
     _sync(device)
+    seen = runtime_devices(cards)
+    print(f"phase 1 the kernel library's own CUDA runtime, current device under "
+          f"torch.cuda.device(i), before any launch on card i > 0: {seen}", flush=True)
+    _require(seen == {str(c): c.index for c in cards},
+             "the kernel library's runtime does not follow torch's current device")
     # the stream layer's host record engine (g++, first use) is set-up too:
     # build it here so that phase 3 times the streaming path alone
     t0 = time.perf_counter()
@@ -1334,6 +1420,13 @@ def main() -> int:
     ]
     errs = check_kernels(device, geometries)
     print(f"phase 2 kernels equal to plain at every geometry: {errs}", flush=True)
+    # every further card: a 2048^2, a narrow and two block-seam geometries,
+    # each through K1-K7 (K2, K3 and K6 with their 64 KB stages)
+    per_card = {"cuda:0": errs}
+    for other in cards[1:]:
+        per_card[str(other)] = check_kernels(other, [geometries[i] for i in (0, 3, 6, 7)])
+        errs = {k: max(v, per_card[str(other)][k]) for k, v in errs.items()}
+    print(f"phase 2 max |kernel - plain| on each card: {json.dumps(per_card)}", flush=True)
     random16 = make_content(2048, 2048, 16, kind="random")
     check_k6_repeats(device, [("camera 16x2048x2048", camera16),
                               ("random 16x2048x2048", random16)])
@@ -1422,19 +1515,30 @@ def main() -> int:
     ragged = make_content(1920, 1081, 4)
     shard_launches, secs = check_sharded_path(device, sharded_frames, 16, ragged)
     n = len(sharded_frames)
-    print(f"phase 5 sharded: 2x2 mesh file of 32 camera + 16 random + 1 camera 2048x2048 "
-          f"frames equal to write_video's byte for byte and read back exactly; 1x4 mesh "
-          f"encode of 4x1081x1920 camera equal to ref_numpy.pack_image, decode exact; "
-          f"sharded_roundtrip_step exact with the single-device n64; "
-          f"graft_entry.dryrun_multichip(8) and entry() passed", flush=True)
+    slots = ",".join(str(d.index) for d in mesh_slots(4, cards))
+    print(f"phase 5 sharded, mesh slots on cuda:{slots}: 2x2 mesh file of 32 camera + 16 random "
+          f"+ 1 camera 2048x2048 frames equal to write_video's byte for byte and read back "
+          f"exactly; 1x4 mesh encode of 4x1081x1920 camera equal to ref_numpy.pack_image, "
+          f"decode exact; sharded_roundtrip_step exact with the single-device n64; "
+          f"graft_entry.dryrun_multichip(8) over {len(cards)} card(s) and entry() passed",
+          flush=True)
     legs = ", ".join(f"{leg} {s:.4f} s ({n / s:.1f} frames/s)" for leg, s in secs.items())
     print(f"phase 5 host clock, {n} 2048x2048 frames, batch 16, file IO included: {legs} "
           f"on {card}", flush=True)
     checked_ms, unchecked_ms = time_shard_encodes(device, camera16)
     print(f"phase 5 shard encodes, 2x2 mesh, 16x2048x2048 camera: {checked_ms:.4f} ms through "
           f"DbdeCodec.encode (K2 and K4 gated, no read-back), {unchecked_ms:.4f} ms as K1 + K2 "
-          f"alone (CUDA events) on {card}; phase 5 took {time.perf_counter() - t5:.1f} s",
-          flush=True)
+          f"alone (CUDA events) on {card}", flush=True)
+    if len(cards) > 1:
+        for name, runs in time_distinct_meshes(sharded_frames, 16).items():
+            legs = "; ".join(f"write {w:.4f} s ({n / w:.1f} frames/s), read {r:.4f} s "
+                             f"({n / r:.1f} frames/s)" for w, r in runs)
+            print(f"phase 5 distinct cards, {name}, {n} 2048x2048 frames, batch 16, host clock, "
+                  f"file IO included, files equal, reads exact: {legs}", flush=True)
+        print("phase 5 distinct cards on " + "; ".join(f"cuda:{i} {v}" for i, v in names.items()))
+    else:
+        print("phase 5 distinct cards: one card visible; meshes of distinct cards need two")
+    print(f"phase 5 took {time.perf_counter() - t5:.1f} s", flush=True)
 
     # the profiler's first start is set-up too, which the first bench would
     # pay.  It comes here, not in phase 1: on an H100 (torch 2.11) the
@@ -1488,6 +1592,7 @@ def main() -> int:
                      "bound_ms": b_ms, "bound_by": by,
                      # no single PyTorch call computes a DBDE tile pack or unpack
                      "library_ms": None})
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {len(cards)} card(s)")
     print("phase 5 launches: " + json.dumps(shard_launches))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

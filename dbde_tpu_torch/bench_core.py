@@ -145,10 +145,13 @@ def make_uniform8(width: int, height: int, frames: int, seed: int = 0
     return img
 
 
-def _measure(fn, reps: int = 4) -> tuple[float, float]:
+def _measure(fn, device: torch.device, reps: int = 4) -> tuple[float, float]:
     """(seconds per call of ``fn()`` from CUDA events, device busy seconds
-    per call from the profiler), each over ``reps`` calls."""
-    return cuda_event_seconds(fn, reps), measure_device_seconds(fn, reps=reps)
+    per call from the profiler), each over ``reps`` calls on the card
+    ``device``."""
+    cards = [device.index]
+    return (cuda_event_seconds(fn, reps, cards=cards),
+            measure_device_seconds(fn, reps=reps, cards=cards))
 
 
 def _busy_ms(**busy) -> dict:
@@ -177,9 +180,9 @@ def run_bench(width: int = 2048, height: int = 2048, frames: int = 8,
 
     enc = codec.encode(x)
     depths = enc.depths.cpu().numpy()
-    t_enc, busy_enc = _measure(lambda: codec.encode(x), iters)
+    t_enc, busy_enc = _measure(lambda: codec.encode(x), codec.device, iters)
     t_dec, busy_dec = _measure(lambda: codec.decode_dispatch(depths, enc.mins, enc.payload),
-                               iters)
+                               codec.device, iters)
     _check_frames(codec.decode(depths, enc.mins, enc.payload), images_np, "run_bench's decode")
 
     n64 = int(enc.n64.to(torch.int64).sum())
@@ -296,7 +299,7 @@ def run_composed_stream_bench(width: int = 2048, height: int = 2048,
     x = torch.from_numpy(src).to(codec.device)
 
     # --- device legs ---
-    t_enc_dev, busy_enc = _measure(lambda: codec.encode(x))
+    t_enc_dev, busy_enc = _measure(lambda: codec.encode(x), codec.device)
     enc = codec.encode(x)
     depths, mins, n64 = enc.depths.cpu().numpy(), enc.mins.cpu().numpy(), enc.n64.cpu().numpy()
     payload = enc.payload_host(2 * int(n64.max()))
@@ -306,7 +309,8 @@ def run_composed_stream_bench(width: int = 2048, height: int = 2048,
     live = payload[:, :stride]
     pay_flat[:, : live.shape[1]] = live
     pay_dev = torch.from_numpy(pay_flat).to(codec.device)
-    t_dec_dev, busy_dec = _measure(lambda: codec.decode_dispatch(depths, enc.mins, pay_dev))
+    t_dec_dev, busy_dec = _measure(lambda: codec.decode_dispatch(depths, enc.mins, pay_dev),
+                                   codec.device)
     _check_frames(codec.decode(depths, enc.mins, pay_dev), src, "the composed bench's decode")
 
     # --- host legs over /dev/shm (no device, no transfer) ---
@@ -400,8 +404,9 @@ def run_latency_bench(width: int = 2048, height: int = 2048,
     x = torch.from_numpy(img).to(codec.device)
     enc = codec.encode(x)
     depths = enc.depths.cpu().numpy()
-    t_enc, busy_enc = _measure(lambda: codec.encode(x), 8)
-    t_dec, busy_dec = _measure(lambda: codec.decode_dispatch(depths, enc.mins, enc.payload), 8)
+    t_enc, busy_enc = _measure(lambda: codec.encode(x), codec.device, 8)
+    t_dec, busy_dec = _measure(lambda: codec.decode_dispatch(depths, enc.mins, enc.payload),
+                               codec.device, 8)
     _check_frames(codec.decode(depths, enc.mins, enc.payload), img, "run_latency_bench's decode")
     npix = height * width
     return {

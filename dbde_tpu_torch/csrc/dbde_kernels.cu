@@ -354,7 +354,11 @@ dim3 chunk_grid(int B, int T) { return dim3((unsigned)((T + kChunk - 1) / kChunk
 
 // The 64 KB stage is above the default 48 KB of dynamic shared memory:
 // raise the kernel's limit once per device (a repeat is harmless), as
-// dbde_encode_tiles does.
+// dbde_encode_tiles does.  The device is this library's runtime's current
+// one: nvcc links the runtime statically, and that copy takes its current
+// device from the CUDA context current on the thread, which
+// torch.cuda.device sets around each launch (ops/launch.py;
+// dbde_current_device shows it).
 constexpr int kMaxDevices = 64;
 
 template <typename Kernel>
@@ -431,6 +435,12 @@ int dbde_decode_u8(const void* mins, const void* payload, void* out, const void*
       (const uint8_t*)mins, (const uint32_t*)payload, (uint8_t*)out, (const int32_t*)mixed,
       H, W, w_tiles, T, S, vec, pvec);
   return (int)cudaGetLastError();
+}
+
+// This library's runtime's current device, or -1 where it has none.
+int dbde_current_device() {
+  int device = -1;
+  return cudaGetDevice(&device) == cudaSuccess ? device : -1;
 }
 
 const char* dbde_error_string(int code) {

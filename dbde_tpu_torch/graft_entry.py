@@ -17,7 +17,8 @@ import torch
 from . import ref_numpy
 from .codec import resolve_device
 from .ops import band
-from .parallel import iter_video_sharded, make_mesh, sharded_roundtrip_step, write_video_sharded
+from .parallel import (iter_video_sharded, make_mesh, mesh_slots, sharded_roundtrip_step,
+                       visible_devices, write_video_sharded)
 
 
 def entry(device="cuda"):
@@ -56,17 +57,10 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     Prints one line.
     """
     kind = torch.device(device).type
-    if kind == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("dryrun_multichip: no CUDA device is visible "
-                               "(device='cpu' runs the plain versions)")
-        visible = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    else:
-        visible = [resolve_device(device)]
+    visible = visible_devices(device)
     n_tiles = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
     n_data = n_devices // n_tiles
-    mesh = make_mesh(n_data=n_data, n_tiles=n_tiles,
-                     devices=[visible[i % len(visible)] for i in range(n_devices)])
+    mesh = make_mesh(n_data=n_data, n_tiles=n_tiles, devices=mesh_slots(n_devices, visible))
 
     rng = np.random.default_rng(1)
     B, H, W = 2 * n_data, 16 * n_tiles, 256  # 2 tile rows a band

@@ -120,6 +120,7 @@ def load() -> ctypes.CDLL:
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
                 fn.argtypes, fn.restype = argtypes, I
+            lib.dbde_current_device.argtypes, lib.dbde_current_device.restype = [], I
             lib.dbde_error_string.argtypes = [I]
             lib.dbde_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -3,6 +3,8 @@
 from .sharding import (
     Mesh,
     make_mesh,
+    mesh_slots,
+    visible_devices,
     encode_sharded,
     decode_sharded,
     decode_sharded_dispatch,

@@ -17,9 +17,13 @@ shard's :class:`~dbde_tpu_torch.codec.DbdeCodec` on its device in turn
 (launches are asynchronous, so shards on distinct cards overlap), with no
 process group and no collective.  The word-total prefix is a
 ``torch.stack`` of a data row's totals on the row's first device and one
-``cumsum`` there, the only step that moves data between devices.  A device
-may appear more than once in a mesh: its shards then run one after
-another on its current stream.
+``cumsum`` there; with the n64 sum of :func:`sharded_roundtrip_step`, the
+only steps that move data between devices (peer copies, which torch orders
+after the work on both cards' current streams).  Copies back to the host
+are enqueued for every shard before the first is waited for, so no card's
+copy queues behind another's.  A device may appear more than once in a
+mesh: its shards then run one after another on its current stream.
+:func:`mesh_slots` lays a mesh's slots over the visible cards in turn.
 
 Each shard runs the band kernels through the codec, which reads nothing
 back: K1, then K2 and K4, gated on the device by the shard's own flag so
@@ -62,15 +66,30 @@ class Mesh:
         return {"data": n_data, "tiles": n_tiles}
 
 
+def visible_devices(device="cuda") -> list[torch.device]:
+    """The devices a mesh of ``device``'s type is laid over: every visible
+    CUDA card for a CUDA ``device`` (this raises when none is visible:
+    there is no CPU fallback), the CPU itself for the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def mesh_slots(n: int, devices) -> list:
+    """``n`` mesh slots laid over ``devices`` in turn (as a rule
+    :func:`visible_devices`): slot ``i`` on ``devices[i % len(devices)]``.
+    So ``n`` slots over ``n`` or more cards each have a card of their own,
+    and one device fills every slot itself (``[device] * n``)."""
+    return [devices[i % len(devices)] for i in range(n)]
+
+
 def make_mesh(n_data: int | None = None, n_tiles: int = 1, devices=None) -> Mesh:
     """Build a ("data", "tiles") mesh from ``devices`` (default: every
     visible CUDA device; with none visible this raises, there is no CPU
-    fallback).  A device may be listed more than once."""
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("make_mesh found no CUDA device; pass devices="
-                               "[torch.device('cpu')] * n for a mesh of plain versions")
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    fallback), filled row by row.  A device may be listed more than once;
+    :func:`mesh_slots` lays a mesh of any size over the visible cards."""
+    devices = visible_devices() if devices is None else devices
     devices = [resolve_device(d) for d in devices]
     if n_data is None:
         n_data = len(devices) // n_tiles
@@ -183,23 +202,29 @@ def encode_sharded(images, mesh: Mesh, backend: str = "auto"):
     images = np.asarray(images, dtype=np.uint8)
     B, H, W = images.shape
     n_data, n_tiles = mesh.devices.shape
+    _, w, h_loc = _band_geometry(W, H, n_tiles)
     grid = _encode_shards(images, mesh)
-    rows = [_totals_bases(row) for row in grid]
-    totals = np.concatenate([_host(t) for t, _ in rows], axis=1)
-    bases = np.concatenate([_host(b) for _, b in rows], axis=1)
-    depths = np.concatenate([np.concatenate([_host(e.depths) for _, e in row], axis=1)
-                             for row in grid])
-    mins = np.concatenate([np.concatenate([_host(e.mins) for _, e in row], axis=1)
-                           for row in grid])
-    S = segment_slot_words(W, H, n_tiles)
-    B_loc = B // n_data
-    payload = np.empty((B, n_tiles, S), np.uint32)
+    # copies back in two rounds, each enqueued for every shard before the
+    # first is waited for: the totals, which size each shard's live
+    # payload, then every shard's depths, minima and live payload prefix
+    sums = [copy.wait() for copy in [HostCopy(_totals_bases(row)) for row in grid]]
+    totals = np.concatenate([t for t, _ in sums], axis=1)
+    bases = np.concatenate([b for _, b in sums], axis=1)
+    B_loc, T_loc = B // n_data, h_loc * w
+    copies = []
     for d, row in enumerate(grid):
-        frames = slice(d * B_loc, (d + 1) * B_loc)
         for t, (_, enc) in enumerate(row):
-            live = int(totals[t, frames].max(initial=0))
-            payload[frames, t, :live] = _host(enc.payload[:, :live])
-    return depths, mins, payload.reshape(B, n_tiles * S), totals, bases, 8 * tile_grid(W, H)[0]
+            live = int(totals[t, d * B_loc:(d + 1) * B_loc].max(initial=0))
+            copies.append(HostCopy([enc.depths, enc.mins, enc.payload[:, :live]]))
+    depths = np.empty((B, n_tiles * T_loc), np.uint8)
+    mins = np.empty((B, n_tiles * T_loc), np.uint8)
+    payload = np.empty((B, n_tiles, segment_slot_words(W, H, n_tiles)), np.uint32)
+    for i, copy in enumerate(copies):
+        d, t = divmod(i, n_tiles)
+        frames, tiles = slice(d * B_loc, (d + 1) * B_loc), slice(t * T_loc, (t + 1) * T_loc)
+        depths[frames, tiles], mins[frames, tiles], live = copy.wait()
+        payload[frames, t, :live.shape[1]] = live
+    return depths, mins, payload.reshape(B, -1), totals, bases, 8 * tile_grid(W, H)[0]
 
 
 # ---------------------------------------------------------------------------

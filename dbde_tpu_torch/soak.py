@@ -1,5 +1,5 @@
-"""Randomized differential soak of the port on one device, and the sharded
-round-trip step's device time.
+"""Randomized differential soak of the port, and the sharded round-trip
+step's device time on one card and on distinct cards.
 
     python -m dbde_tpu_torch.soak [--cases N] [--seed S] [--seconds T] [--case I]
                                   [--device cuda|cpu]
@@ -37,13 +37,17 @@ tolerance 0 (:func:`run_case`):
     after each ``write()``: the file equal to ``ref_numpy.encode_video``,
     read back exact;
   * in a share of the cases, the sharded path on a random ``(n_data,
-    n_tiles)`` mesh whose every slot is the one device, with B not a
-    multiple of ``n_data`` and H not of ``8 * n_tiles``.
+    n_tiles)`` mesh laid over every visible card in turn
+    (``parallel.mesh_slots``; on one card, or the CPU, every slot is that
+    device), with B not a multiple of ``n_data`` and H not of
+    ``8 * n_tiles``.
 
 The first difference raises :class:`SoakFailure`, which names it: the
 frame and the word, tile, pixel or byte, with both values.  ``main`` prints
 it with the case, the seed, the backend and the route, and exits 1.  On a
-CUDA device ``main`` then runs :func:`check_sharded_step_time`.
+CUDA device ``main`` then runs :func:`check_sharded_step_time` (check (c),
+one card) and :func:`check_distinct_cards` (check (d), where two or more
+cards are visible).
 
 On the CPU (``--device cpu``) every kernel wrapper runs its plain version,
 so the checks hold the codec's glue and the plain versions against the
@@ -77,12 +81,14 @@ from .parallel import (
     decode_sharded,
     encode_sharded,
     make_mesh,
+    mesh_slots,
     read_video_sharded,
     sharded_roundtrip_step,
+    visible_devices,
     write_video_sharded,
 )
 from .stream import DbdeReader, DbdeWriter
-from .utils.profiling import card_name, measure_device_seconds
+from .utils.profiling import card_name, measure_device_cards, measure_device_seconds
 
 PAST_2_31 = "past 2**31 bytes"
 DEVICE_CONTENT = "made on the device, mixed then all depth 8"
@@ -103,6 +109,10 @@ ORACLE_BYTES = 1 << 20  # frames over this are checked against ref_numpy in thei
 ORACLE_TILE_ROWS = 64
 STREAM_PIXELS = 1 << 16  # a stream case's frames hold at most this many pixels
 STEP_TIME_LIMIT = 1.15  # sharded step / single-device round trip (tools/tpu_sharded_check.py:79)
+# check (d): a card's busy time in the step on distinct cards / the single
+# card's round trip.  Each card holds a share of the frames, so above 1.0
+# means the slots piled onto one card
+CARD_BUSY_LIMIT = 1.0
 ENCODE = {"band": {"encode_depths": 1, "encode_payload": 1, "encode_payload_u8": 1},
           "tiles": {"encode_tiles": 1}}
 
@@ -589,7 +599,8 @@ def check_stream(case: Case, device: torch.device, tally: Tally) -> None:
 
 def check_sharded(case: Case, frames: np.ndarray, plain: Plain, device: torch.device,
                   tally: Tally) -> None:
-    """The sharded path on the case's mesh, every slot ``device``: the
+    """The sharded path on the case's mesh, laid over every visible device
+    of ``device``'s type (``mesh_slots``): the
     batch padded to whole data shards with repeats of its last frame (as
     ``write_video_sharded`` pads), ``encode_sharded`` →
     ``assemble_payload_host`` equal to the single-device arrays,
@@ -599,7 +610,8 @@ def check_sharded(case: Case, frames: np.ndarray, plain: Plain, device: torch.de
     n_data, n_tiles = case.mesh
     B, H, W = frames.shape
     tally.at("sharded", f"mesh {n_data}x{n_tiles}")
-    mesh = make_mesh(n_data, n_tiles, devices=[device] * (n_data * n_tiles))
+    mesh = make_mesh(n_data, n_tiles,
+                     devices=mesh_slots(n_data * n_tiles, visible_devices(device)))
     pad = -B % n_data
     padded = np.concatenate([frames, np.repeat(frames[-1:], pad, 0)])
     depths, mins, segments, totals, _, Hp = encode_sharded(padded, mesh)
@@ -733,11 +745,58 @@ def check_sharded_step_time(device="cuda") -> dict:
         if step_n64 != int(n64.astype(np.int64).sum()):
             raise SoakFailure(f"sharded_roundtrip_step n64 on the {name} mesh", "the sum",
                               step_n64, int(n64.astype(np.int64).sum()))
-    t = {name: measure_device_seconds(lambda: sharded_roundtrip_step(frames, mesh))
+    cards = [dev.index]
+    t = {name: measure_device_seconds(lambda: sharded_roundtrip_step(frames, mesh), cards=cards)
          for name, mesh in meshes.items()}
-    t["single"] = measure_device_seconds(lambda: codec.roundtrip(frames))
+    t["single"] = measure_device_seconds(lambda: codec.roundtrip(frames), cards=cards)
     t["card"] = card
     return t
+
+
+# -- (d): the sharded step on distinct cards ------------------------------------
+
+
+def distinct_mesh_shape(count: int) -> tuple[int, int] | None:
+    """Check (d)'s mesh for ``count`` visible cards, one slot a card: 2x2
+    over four (the first four of more), 2x1 over two or three; None below
+    two."""
+    if count < 2:
+        return None
+    return (2, 2) if count >= 4 else (2, 1)
+
+
+def check_distinct_cards() -> dict | None:
+    """Check (d): ``sharded_roundtrip_step`` of 8 2048² camera frames from
+    the host on a mesh with one slot a card
+    (:func:`distinct_mesh_shape`), against ``DbdeCodec.roundtrip`` on
+    cuda:0: the frames and n64 must be exact.  Measures each card's device
+    busy time in the step and the step's span on the profiler's shared
+    clock (``utils/profiling.measure_device_cards``), beside the single
+    card's busy time and span in its round trip.  Returns None where fewer
+    than two cards are visible (nothing to run on), else {"mesh", "cards":
+    {index: busy s}, "span" s, "single" s, "single_span" s, "names":
+    {index: card}}; the caller gates the cards' times
+    (:data:`CARD_BUSY_LIMIT`)."""
+    shape = distinct_mesh_shape(torch.cuda.device_count())
+    if shape is None:
+        return None
+    cards = visible_devices("cuda")[: shape[0] * shape[1]]
+    mesh = make_mesh(*shape, devices=cards)
+    frames = make_content(2048, 2048, 8)
+    codec = DbdeCodec(2048, 2048, device=cards[0])
+    out, n64 = codec.roundtrip(frames)
+    expect_equal("DbdeCodec.roundtrip on cuda:0", out, frames, "pixel")
+    out, step_n64 = sharded_roundtrip_step(frames, mesh)
+    expect_equal(f"sharded_roundtrip_step on {len(cards)} cards", out, frames, "pixel")
+    if step_n64 != int(n64.astype(np.int64).sum()):
+        raise SoakFailure(f"sharded_roundtrip_step n64 on {len(cards)} cards", "the sum",
+                          step_n64, int(n64.astype(np.int64).sum()))
+    busy, span = measure_device_cards(lambda: sharded_roundtrip_step(frames, mesh),
+                                      [c.index for c in cards])
+    single, single_span = measure_device_cards(lambda: codec.roundtrip(frames),
+                                               [cards[0].index])
+    return {"mesh": shape, "cards": busy, "span": span, "single": single[cards[0].index],
+            "single_span": single_span, "names": {c.index: card_name(c.index) for c in cards}}
 
 
 # -- main ---------------------------------------------------------------------------
@@ -800,6 +859,29 @@ def main(argv=None) -> int:
                   f"{ratio:.3f}x the single-device round trip's, over {STEP_TIME_LIMIT}",
                   flush=True)
             return 1
+        try:
+            d = check_distinct_cards()
+        except SoakFailure as exc:
+            print(f"SOAK FAILED in the distinct-card check (d): {exc}", flush=True)
+            return 1
+        if d is None:
+            print("sharded step check (d): needs two or more cards, 1 visible; not run",
+                  flush=True)
+        else:
+            worst = max(d["cards"].values()) / d["single"]
+            cards = ", ".join(f"cuda:{i} {t * 1e3:.4f} ms ({t / d['single']:.3f}x)"
+                              for i, t in d["cards"].items())
+            names = "; ".join(f"cuda:{i} {name}" for i, name in d["names"].items())
+            print(f"sharded step check (d), 8x2048x2048 camera from host frames on a "
+                  f"{d['mesh'][0]}x{d['mesh'][1]} mesh of distinct cards, frames and n64 exact; "
+                  f"device busy per card: {cards} (limit {CARD_BUSY_LIMIT}x); step span "
+                  f"{d['span'] * 1e3:.4f} ms on the profiler's clock; DbdeCodec.roundtrip on "
+                  f"cuda:0 {d['single'] * 1e3:.4f} ms busy over a span of "
+                  f"{d['single_span'] * 1e3:.4f} ms; on {names}", flush=True)
+            if worst > CARD_BUSY_LIMIT:
+                print(f"SOAK FAILED in the distinct-card check (d): a card was busy {worst:.3f}x "
+                      f"the single card's round trip, over {CARD_BUSY_LIMIT}", flush=True)
+                return 1
     print(f"SOAK OK ({ran} cases, seed {args.seed})", flush=True)
     return 0
 

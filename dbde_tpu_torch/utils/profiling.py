@@ -4,11 +4,14 @@ Counterpart of :mod:`dbde_tpu.utils.profiling`, which parses the JAX
 profiler's XPlane traces.  On a GPU the call's time comes from CUDA events
 around many calls (:func:`cuda_event_seconds`, the metric ``PERF.md`` §2
 defines), and the device's busy time from ``torch.profiler``'s CUDA
-activities (:func:`measure_device_seconds`).
+activities (:func:`measure_device_seconds`; each card's, and their span on
+the profiler's shared clock, from :func:`measure_device_cards`).  A
+measurement is given the cards its call uses, since a mesh's call runs on
+several: it synchronizes each of them, and its events cover each.
 
 Every function that measures or reads a trace raises when no CUDA device is
 visible; none returns None for a caller to fall back on.  The interval
-arithmetic (:func:`idle_share`) works on any intervals.
+arithmetic (:func:`idle_share`, :func:`card_shares`) works on any intervals.
 """
 
 from __future__ import annotations
@@ -44,34 +47,53 @@ def card_name(index: int = 0) -> str:
     raise RuntimeError(f"nvidia-smi lists no card with UUID {uuid}")
 
 
-def cuda_event_seconds(fn, reps: int, warmup: int = 3) -> float:
-    """Seconds per call of ``fn()``: ``warmup`` calls, then a CUDA event
-    before and after ``reps`` calls on the current stream, synchronized."""
+def sync_cards(cards) -> None:
+    """Wait for the work on each card of ``cards`` (indices)."""
+    for index in cards:
+        torch.cuda.synchronize(index)
+
+
+def cuda_event_seconds(fn, reps: int, warmup: int = 3, cards=None) -> float:
+    """Seconds per call of ``fn()`` on ``cards`` (indices; default the
+    current card): ``warmup`` calls, then a CUDA event on the first card's
+    current stream before ``reps`` calls and one after them, recorded once
+    that stream has waited for each other card's current stream, so the
+    time covers the work of every card the calls used.  On one card this
+    is an event before and after on its stream."""
     _require_cuda()
+    cards = [torch.cuda.current_device()] if cards is None else list(cards)
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
+    sync_cards(cards)
+    stream = torch.cuda.current_stream(cards[0])
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    start.record(stream)
     for _ in range(reps):
         fn()
-    end.record()
+    for index in cards[1:]:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(index))
+        stream.wait_event(done)
+    end.record(stream)
     end.synchronize()
     return start.elapsed_time(end) / reps / 1e3
 
 
-def device_intervals(prof) -> list[tuple[str, float, float]]:
-    """(name, start µs, end µs) of every device activity ``prof`` (a
-    finished ``torch.profiler.profile``) saw."""
+def device_intervals(prof) -> list[tuple[int, str, float, float]]:
+    """(card index, name, start µs, end µs) of every device activity
+    ``prof`` (a finished ``torch.profiler.profile``) saw.  The profiler puts
+    every card's activity on one clock."""
     _require_cuda()
-    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    return [(e.device_index, e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def idle_share(intervals) -> tuple[float, float, float]:
-    """→ (busy µs, span µs, idle share) of the union of the (name, start,
-    end) intervals."""
-    spans = sorted((s, e) for _, s, e in intervals)
+    """→ (busy µs, span µs, idle share) of the union of the intervals, each
+    a tuple that ends with its start and end: (name, start, end) or (card,
+    name, start, end).  Every interval counts as on one device: give it one
+    card's intervals (:func:`card_shares`)."""
+    spans = sorted((iv[-2], iv[-1]) for iv in intervals)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -84,19 +106,32 @@ def idle_share(intervals) -> tuple[float, float, float]:
     return busy, span, 1.0 - busy / span
 
 
+def card_shares(intervals) -> tuple[dict[int, tuple[float, float, float]], float]:
+    """(card, name, start, end) intervals → ({card: (busy µs, span µs, idle
+    share)} of each card's own intervals, the span in µs of them all on the
+    profiler's shared clock, first start to last end).  One card gives
+    :func:`idle_share`'s result and its span."""
+    by_card: dict[int, list] = {}
+    for iv in intervals:
+        by_card.setdefault(iv[0], []).append(iv)
+    span = max(iv[3] for iv in intervals) - min(iv[2] for iv in intervals)
+    return {card: idle_share(ivs) for card, ivs in sorted(by_card.items())}, span
+
+
 PROFILE_SESSIONS = 3  # profiler sessions a measurement may take
 
 
-def measure_device_seconds(fn, reps: int = 4) -> float:
-    """Device busy seconds per call of ``fn()``: one warm-up call, then
-    ``reps`` calls under ``torch.profiler``; the union of the device
-    activities' intervals over ``reps``.  A session that delivers no device
-    activity is run again, up to :data:`PROFILE_SESSIONS` in all (on an
-    H100, torch 2.11, about one process in four had a session whose device
-    records never arrived); raises when none delivers any."""
+def _profiled_intervals(fn, reps: int, sync, want) -> list:
+    """The device intervals (:func:`device_intervals`) of ``reps`` calls of
+    ``fn()`` under ``torch.profiler``, after one warm-up call, with the
+    cards of ``sync`` synchronized before and after.  A session in which no
+    card, or a card of ``want``, delivers device activity is run again, up
+    to :data:`PROFILE_SESSIONS` in all (on an H100, torch 2.11, about one
+    process in four had a session whose device records never arrived);
+    raises when none delivers them."""
     _require_cuda()
     fn()
-    torch.cuda.synchronize()
+    sync_cards(sync)
     for _ in range(PROFILE_SESSIONS):
         # the host activity stays on although only device events are read:
         # on an H100 (torch 2.11), a device-only session in a process that
@@ -104,9 +139,34 @@ def measure_device_seconds(fn, reps: int = 4) -> float:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
+            sync_cards(sync)
         intervals = device_intervals(prof)
-        if intervals:
-            busy, _, _ = idle_share(intervals)
-            return busy / reps / 1e6
-    raise RuntimeError(f"the profiler saw no device activity in {PROFILE_SESSIONS} sessions")
+        if intervals and set(want) <= {iv[0] for iv in intervals}:
+            return intervals
+    on = f" on card(s) {sorted(want)}" if want else ""
+    raise RuntimeError(f"the profiler saw no device activity in {PROFILE_SESSIONS} sessions{on}")
+
+
+def measure_device_cards(fn, want, reps: int = 4) -> tuple[dict[int, float], float]:
+    """Device time of ``fn()`` on each card of ``want`` (card indices), the
+    cards synchronized before and after (:func:`_profiled_intervals`).
+    Returns ({card: busy seconds per call, the union of that card's device
+    activities}, the span in seconds per call of those cards' activity on
+    the profiler's shared clock)."""
+    intervals = [iv for iv in _profiled_intervals(fn, reps, want, want) if iv[0] in want]
+    shares, span = card_shares(intervals)
+    return {card: shares[card][0] / reps / 1e6 for card in want}, span / reps / 1e6
+
+
+def measure_device_seconds(fn, reps: int = 4, cards=None) -> float:
+    """Device busy seconds per call of ``fn()``: the union of the device
+    activities' intervals over ``reps`` calls (:func:`_profiled_intervals`).
+    With ``cards`` (indices), the union of those cards' activities, each of
+    which must deliver some, the cards synchronized; without, every card's
+    activity as one union, the current card synchronized."""
+    _require_cuda()
+    sync = [torch.cuda.current_device()] if cards is None else list(cards)
+    intervals = _profiled_intervals(fn, reps, sync, cards or [])
+    if cards is not None:
+        intervals = [iv for iv in intervals if iv[0] in cards]
+    return idle_share(intervals)[0] / reps / 1e6

@@ -18,6 +18,7 @@ from dbde_tpu_torch import DbdeReader, DbdeWriter, read_video, write_video
 from dbde_tpu_torch.stream import _GatedPool
 from dbde_tpu_torch.codec import DbdeCodec, EncodedBatch, pack_frames_bytes
 from dbde_tpu_torch.ops import band, tile_layout, word_offsets
+from dbde_tpu_torch.parallel import visible_devices
 from torch.profiler import ProfilerActivity, profile
 
 pytestmark = pytest.mark.requires_cuda
@@ -461,3 +462,64 @@ def test_codec_keeps_the_callers_stream(cuda):
         out = codec.materialize(pending)
         assert torch.cuda.current_stream(cuda) == mine
     np.testing.assert_array_equal(out, frames)
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs (runs on a multi-GPU machine)")
+    return visible_devices("cuda")
+
+
+@pytest.mark.parametrize("name", ["camera", "depth runs across block seams", "T mod 1024 = 1"])
+def test_every_kernel_on_every_card(cards, name):
+    """K1–K7 on each card, with torch's current device another card: each
+    equals its plain version on that card (K2, K3 and K6 take 64 KB of
+    dynamic shared memory, whose limit is raised once a card)."""
+    frames = GEOMETRIES[name]()
+    B, H, W = frames.shape
+    for card in cards:
+        other = cards[(card.index + 1) % len(cards)]
+        with torch.cuda.device(other):
+            x = torch.from_numpy(np.ascontiguousarray(frames)).to(card)
+            d, m = band.encode_depths(x)
+            p, n = band.encode_payload(x, d, m)
+            p4 = band.encode_payload_u8(x, m)
+            out = band.decode_frames(d, m, p, H, W)
+            out5 = band.decode_frames_u8(m, p4, H, W)
+            k6 = tile_layout.encode_tiles(tile_layout.image_to_tiles_w(x), d.shape[1])
+            k7 = tile_layout.decode_tiles(*k6[:3])
+            torch.cuda.synchronize(card)
+            assert torch.equal(out, x) and torch.equal(out5, x), card
+            assert torch.equal(tile_layout.tiles_w_to_image(k7, H, W), x), card
+            pp, np_ = band.encode_payload_plain(x, d, m)
+            assert torch.equal(n, np_) and torch.equal(k6[3], n), card
+            for b, words in enumerate((2 * n).tolist()):  # past them: unspecified
+                assert torch.equal(p[b, :words].view(torch.int32),
+                                   pp[b, :words].view(torch.int32)), (card, b)
+
+
+def test_sharded_path_on_distinct_cards(cards, tmp_path):
+    """A mesh with one slot a card (2x2 over four, 2x1 over two or three):
+    the sharded arrays equal a CPU mesh's, the round-trip step returns the
+    frames with their n64, and the sharded file is write_video's."""
+    from dbde_tpu_torch.parallel import (encode_sharded, make_mesh, mesh_slots,
+                                         sharded_roundtrip_step, write_video_sharded)
+    from dbde_tpu_torch.soak import distinct_mesh_shape
+
+    shape = distinct_mesh_shape(len(cards))
+    mesh = make_mesh(*shape, devices=mesh_slots(shape[0] * shape[1], cards))
+    assert len(set(mesh.devices.flat)) == shape[0] * shape[1]
+    frames = np.concatenate([make_content(40, 16, 4, kind="random"), make_content(40, 16, 4)],
+                            axis=1)
+    depth, mins, payload, totals, bases, Hp = encode_sharded(frames, mesh)
+    want = encode_sharded(frames, make_mesh(*shape, devices=[torch.device("cpu")] * 4))
+    for g, w in zip((depth, mins, totals, bases), (want[0], want[1], want[3], want[4])):
+        np.testing.assert_array_equal(g, w)
+    out, n64 = sharded_roundtrip_step(frames, mesh)
+    np.testing.assert_array_equal(out, frames)
+    assert n64 == int(depth.astype(np.int64).sum())
+    single, sharded = tmp_path / "single.dbde", tmp_path / "sharded.dbde"
+    write_video(single, frames, device=cards[0], batch_size=4)
+    write_video_sharded(sharded, frames, mesh, batch_size=4)
+    assert single.read_bytes() == sharded.read_bytes()

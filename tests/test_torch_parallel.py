@@ -16,6 +16,7 @@ from dbde_tpu_torch import write_video
 from dbde_tpu_torch.bench_core import make_content
 from dbde_tpu_torch.graft_entry import dryrun_multichip
 from dbde_tpu_torch.ops import band
+from dbde_tpu_torch.parallel import sharding
 from dbde_tpu_torch.parallel import (
     assemble_payload_host,
     assemble_payload_padded,
@@ -23,10 +24,12 @@ from dbde_tpu_torch.parallel import (
     encode_sharded,
     iter_video_sharded,
     make_mesh,
+    mesh_slots,
     read_video_sharded,
     segment_slot_words,
     sharded_roundtrip_step,
     split_payload_host,
+    visible_devices,
     write_video_sharded,
 )
 
@@ -65,6 +68,42 @@ def test_make_mesh_needs_cuda_by_default():
         make_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh(devices=["cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        visible_devices()
+
+
+CARDS = [torch.device("cuda", i) for i in range(4)]
+
+
+@pytest.mark.parametrize("n, devices, want", [
+    (4, CARDS, CARDS),  # one slot a card
+    (8, CARDS, CARDS * 2),  # repeats, in turn
+    (6, CARDS, CARDS + CARDS[:2]),
+    (2, CARDS, CARDS[:2]),  # fewer slots than cards: the first cards
+    (3, CARDS[:2], [CARDS[0], CARDS[1], CARDS[0]]),
+    (1, CARDS[:1], CARDS[:1]),
+], ids=["4 over 4", "8 over 4", "6 over 4", "2 over 4", "3 over 2", "1 over 1"])
+def test_mesh_slots_lay_slots_over_the_cards_in_turn(n, devices, want):
+    assert mesh_slots(n, devices) == want
+
+
+@pytest.mark.parametrize("device", [torch.device("cpu"), torch.device("cuda", 0),
+                                    torch.device("cuda", 3)])
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_mesh_slots_one_device_fills_every_slot(device, n):
+    """One visible device gives exactly ``[device] * n``: the meshes every
+    run on one card has used."""
+    assert mesh_slots(n, [device]) == [device] * n
+
+
+def test_visible_devices_are_the_cpu_or_every_card(monkeypatch):
+    """The CPU's mesh is laid over the CPU alone; a CUDA one over every
+    visible card, in order, whichever card is current."""
+    assert visible_devices("cpu") == [torch.device("cpu")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    assert visible_devices() == visible_devices("cuda:3") == CARDS
 
 
 @pytest.mark.parametrize("n_data,n_tiles", [(2, 1), (1, 2), (4, 2), (2, 3)])
@@ -241,19 +280,67 @@ def test_dryrun_multichip_on_cpu(capsys):
 
 
 def test_sharded_arrays_match_jax_package():
-    """On a 2x2 mesh at 4x32x30 the port's sharded arrays equal the JAX
-    package's backend="xla" ones, and the JAX segments, at their own
-    stride, decode exactly in the port."""
+    """On a 2x2 mesh at 4x32x30, and on the JAX package's multichip mesh,
+    4x2 at 8x32x1024 (MULTICHIP_r05.json's), the port's sharded arrays
+    equal the JAX package's backend="xla" ones on the virtual CPU mesh, and
+    the JAX segments, at their own stride, decode exactly in the port."""
     import jax
 
-    frames = _frames(B=4, H=32, W=30, seed=31)
-    jmesh = jax_make_mesh(n_data=2, n_tiles=2, devices=jax.devices("cpu")[:4])
-    jd, jm, jp, jt, jb, jHp = (np.asarray(a) for a in jax_encode_sharded(frames, jmesh, backend="xla"))
-    mesh = _mesh(2, 2)
-    depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
-    assert Hp == int(jHp)
-    for ours, theirs in ((depth, jd), (mn, jm), (totals, jt), (bases, jb)):
+    for (n_data, n_tiles), (B, H, W) in (((2, 2), (4, 32, 30)), ((4, 2), (8, 32, 1024))):
+        frames = _frames(B=B, H=H, W=W, seed=31)
+        jmesh = jax_make_mesh(n_data=n_data, n_tiles=n_tiles,
+                              devices=jax.devices("cpu")[: n_data * n_tiles])
+        jd, jm, jp, jt, jb, jHp = (np.asarray(a) for a in
+                                   jax_encode_sharded(frames, jmesh, backend="xla"))
+        mesh = _mesh(n_data, n_tiles)
+        depth, mn, payload, totals, bases, Hp = encode_sharded(frames, mesh)
+        assert Hp == int(jHp)
+        for ours, theirs in ((depth, jd), (mn, jm), (totals, jt), (bases, jb)):
+            np.testing.assert_array_equal(ours, theirs)
+        for ours, theirs in zip(assemble_payload_host(payload, totals),
+                                assemble_payload_host(jp, jt)):
+            np.testing.assert_array_equal(ours, theirs)
+        np.testing.assert_array_equal(
+            decode_sharded(jd, jm, jp, mesh, H=H, W=W, Hp=Hp), frames)
+
+
+class RecordingCopy:
+    """A stand-in for codec.HostCopy that logs when each copy is enqueued
+    and when it is waited for, and returns what HostCopy returns."""
+
+    log: list = []
+
+    def __init__(self, tensors, stream=None, after=None):
+        self.tensors = list(tensors)
+        self.index = sum(1 for event, _ in self.log if event == "enqueue")
+        self.log.append(("enqueue", self.index))
+
+    def wait(self):
+        self.log.append(("wait", self.index))
+        return [t.numpy() for t in self.tensors]
+
+
+@pytest.mark.parametrize("n_data,n_tiles", [(1, 1), (2, 2), (4, 2), (1, 4)])
+def test_encode_sharded_enqueues_every_copy_before_the_first_wait(monkeypatch, n_data, n_tiles):
+    """Two rounds: every data row's totals and bases, then every shard's
+    depths, minima and live payload; in each round every copy is enqueued
+    before the first is waited for.  The arrays are those with HostCopy."""
+    frames = _frames(B=2 * n_data, H=32, W=40, seed=41)
+    mesh = _mesh(n_data, n_tiles)
+    want = encode_sharded(frames, mesh)
+    monkeypatch.setattr(RecordingCopy, "log", [])
+    monkeypatch.setattr(sharding, "HostCopy", RecordingCopy)
+    got = encode_sharded(frames, mesh)
+    rows, shards = n_data, n_data * n_tiles
+    assert [event for event, _ in RecordingCopy.log] == (
+        ["enqueue"] * rows + ["wait"] * rows + ["enqueue"] * shards + ["wait"] * shards)
+    assert [i for _, i in RecordingCopy.log] == (
+        [*range(rows)] * 2 + [*range(rows, rows + shards)] * 2)
+    (depth, mn, payload, totals, bases, Hp), (wd, wm, wp, wt, wb, wHp) = got, want
+    for ours, theirs in ((depth, wd), (mn, wm), (totals, wt), (bases, wb)):
+        assert ours.dtype == theirs.dtype
         np.testing.assert_array_equal(ours, theirs)
-    for ours, theirs in zip(assemble_payload_host(payload, totals), assemble_payload_host(jp, jt)):
+    assert payload.shape == wp.shape and Hp == wHp
+    # slot words past each frame's own total are unspecified
+    for ours, theirs in zip(assemble_payload_host(payload, totals), assemble_payload_host(wp, wt)):
         np.testing.assert_array_equal(ours, theirs)
-    np.testing.assert_array_equal(decode_sharded(jd, jm, jp, mesh, H=32, W=30, Hp=Hp), frames)

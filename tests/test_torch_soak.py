@@ -222,3 +222,19 @@ def test_soak_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (runs on the GPU machine)")
     assert soak.main(["--seed", "0", "--cases", "3"]) == 0
+
+
+@pytest.mark.parametrize("count, shape", [(0, None), (1, None), (2, (2, 1)), (3, (2, 1)),
+                                          (4, (2, 2)), (8, (2, 2))])
+def test_distinct_card_check_mesh(count, shape):
+    """Check (d)'s mesh has one slot a card: 2x2 over four cards, 2x1 over
+    two or three, and none below two."""
+    assert soak.distinct_mesh_shape(count) == shape
+
+
+def test_distinct_card_check_needs_two_cards():
+    """With fewer than two cards visible, check (d) has nothing to run on
+    and returns None rather than a result."""
+    if torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        pytest.skip("two or more GPUs are visible; this checks the case without them")
+    assert soak.check_distinct_cards() is None

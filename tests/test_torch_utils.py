@@ -170,7 +170,7 @@ def _ratio(frames: np.ndarray) -> float:
 def stub_timers(monkeypatch):
     """``_measure`` calls the timed function once and returns 2 ms a call,
     1 ms of it busy; ``card_name`` names a stub card."""
-    def measure(fn, reps=4):
+    def measure(fn, device, reps=4):
         fn()
         return 2e-3, 1e-3
 
@@ -250,6 +250,128 @@ def test_idle_share_on_synthetic_intervals(intervals, busy, span):
     assert profiling.idle_share(intervals) == (busy, span, 1.0 - busy / span)
 
 
+@pytest.mark.parametrize("intervals, busy, span", [
+    ([("k", 0.0, 10.0)], 10.0, 10.0),
+    ([("a", 0.0, 10.0), ("b", 10.0, 12.0)], 12.0, 12.0),
+    ([("a", 0.0, 4.0), ("b", 6.0, 8.0), ("c", 1.0, 7.0)], 8.0, 8.0),
+    ([("a", 5.0, 6.0), ("b", 0.0, 1.0), ("c", 9.0, 10.0)], 3.0, 10.0),
+])
+@pytest.mark.parametrize("card", [0, 3])
+def test_card_shares_on_one_card_is_idle_share(intervals, busy, span, card):
+    """One card's (card, name, start, end) intervals give idle_share's
+    (busy, span, idle share) of the same intervals, and its span."""
+    tagged = [(card, *iv) for iv in intervals]
+    shares, whole = profiling.card_shares(tagged)
+    assert shares == {card: profiling.idle_share(intervals)} == {card: profiling.idle_share(tagged)}
+    assert whole == span
+
+
+def test_card_shares_keeps_each_cards_own_time():
+    """Four cards, each busy in its own window: each card's busy time,
+    span and idle share are its own (the union of all four would merge
+    them), and the span on the shared clock runs from the first start to
+    the last end."""
+    intervals = [
+        (0, "K1", 0.0, 4.0), (0, "K2", 3.0, 6.0), (0, "copy", 8.0, 10.0),  # 8 busy of 10
+        (1, "K1", 1.0, 3.0), (1, "K2", 5.0, 7.0),  # 4 busy of 6
+        (2, "K1", 2.0, 12.0),  # busy throughout
+        (3, "copy", 20.0, 21.0), (3, "K3", 20.5, 25.0),  # 5 of 5, last
+    ]
+    shares, span = profiling.card_shares(intervals)
+    assert shares == {0: (8.0, 10.0, 1 - 8 / 10), 1: (4.0, 6.0, 1 - 4 / 6), 2: (10.0, 10.0, 0.0),
+                      3: (5.0, 5.0, 0.0)}
+    assert span == 25.0
+    assert profiling.idle_share(intervals)[0] == 17.0  # what the union of all would report
+
+
+def test_sync_cards_synchronizes_the_given_cards(monkeypatch):
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda index: synced.append(index))
+    profiling.sync_cards([3, 1])
+    assert synced == [3, 1]
+
+
+class _Stream:
+    def __init__(self, card, log):
+        self.card, self.log = card, log
+
+    def wait_event(self, event):
+        self.log.append(("wait", self.card, event.stream.card))
+
+
+class _Event:
+    def __init__(self, log, enable_timing=False):
+        self.log, self.stream = log, None
+
+    def record(self, stream=None):
+        self.stream = stream
+        self.log.append(("record", None if stream is None else stream.card))
+
+    def synchronize(self):
+        self.log.append(("synchronize", self.stream.card))
+
+    def elapsed_time(self, end):
+        return 8.0  # ms
+
+
+@pytest.mark.parametrize("cards, current, home, others", [
+    (None, 2, 2, []),  # the current card alone
+    ([1], 0, 1, []),  # a card that is not the current one
+    ([0, 1, 2, 3], 0, 0, [1, 2, 3]),  # a mesh's cards
+])
+def test_cuda_event_seconds_times_the_calls_cards(monkeypatch, cards, current, home, others):
+    """The events go on the first card's current stream, which waits for
+    each other card of the call before the end event; only the call's cards
+    are synchronized.  (Events and streams stubbed: they need a GPU.)"""
+    log = []
+    monkeypatch.setattr(profiling, "_require_cuda", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda card: _Stream(card, log))
+    monkeypatch.setattr(torch.cuda, "Event", lambda **kw: _Event(log, **kw))
+    monkeypatch.setattr(profiling, "sync_cards", lambda cs: log.append(("sync", list(cs))))
+    calls = []
+    assert profiling.cuda_event_seconds(lambda: calls.append(1), reps=4, warmup=2,
+                                        cards=cards) == 2e-3
+    assert len(calls) == 6
+    assert log == [("sync", cards or [current]), ("record", home),
+                   *[x for card in others for x in (("record", card), ("wait", home, card))],
+                   ("record", home), ("synchronize", home)]
+
+
+@pytest.mark.parametrize("sessions_short, want", [(0, True), (2, True), (3, False)])
+def test_measure_device_cards_needs_every_card(monkeypatch, sessions_short, want):
+    """A session in which a card of the call delivers no device activity
+    is run again, up to PROFILE_SESSIONS; each card's busy time and the
+    span on the shared clock are per call."""
+    import contextlib
+
+    sessions, synced = [], []
+    full = [(0, "K1", 0.0, 8.0), (1, "K1", 2.0, 6.0), (1, "K3", 10.0, 14.0)]
+
+    def intervals(prof):
+        sessions.append(prof)
+        return full[:1] if len(sessions) <= sessions_short else full
+
+    monkeypatch.setattr(profiling, "_require_cuda", lambda: None)
+    monkeypatch.setattr(profiling, "sync_cards",
+                        lambda cards: synced.append((cards, len(sessions))))
+    monkeypatch.setattr(profiling, "profile", lambda activities: contextlib.nullcontext("prof"))
+    monkeypatch.setattr(profiling, "device_intervals", intervals)
+    calls = []
+    if want:
+        busy, span = profiling.measure_device_cards(lambda: calls.append(1), [0, 1], reps=2)
+        assert busy == {0: 4e-6, 1: 4e-6} and span == 7e-6
+    else:
+        with pytest.raises(RuntimeError, match=r"no device activity in 3 sessions on card\(s\) "
+                                               r"\[0, 1\]"):
+            profiling.measure_device_cards(lambda: calls.append(1), [0, 1], reps=2)
+    n = min(sessions_short + 1, profiling.PROFILE_SESSIONS)
+    assert len(sessions) == n
+    assert len(calls) == 1 + 2 * n  # one warm-up call, then reps a session
+    # the call's cards, after the warm-up and in each session after its calls
+    assert synced == [([0, 1], i) for i in (0, *range(n))]
+
+
 def test_card_name_finds_the_card_by_uuid(monkeypatch):
     """nvidia-smi lists cards in PCI order; the torch ordinal's card is the
     one with its UUID."""
@@ -280,10 +402,11 @@ def test_measure_device_seconds_profiles_again_when_no_device_record_arrives(
 
     def intervals(prof):
         sessions.append(prof)
-        return [] if len(sessions) <= empty else [("k", 0.0, 8.0)]
+        return [] if len(sessions) <= empty else [(0, "k", 0.0, 8.0)]
 
     monkeypatch.setattr(profiling, "_require_cuda", lambda: None)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(profiling, "sync_cards", lambda cards: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(profiling, "profile", lambda activities: contextlib.nullcontext("prof"))
     monkeypatch.setattr(profiling, "device_intervals", intervals)
     if want is None:
@@ -293,6 +416,36 @@ def test_measure_device_seconds_profiles_again_when_no_device_record_arrives(
         assert profiling.measure_device_seconds(lambda: None, reps=4) == want
     assert len(sessions) == min(empty + 1, profiling.PROFILE_SESSIONS)
 
+
+
+@pytest.mark.parametrize("cards, busy, synced", [
+    (None, 4.0, [0]),  # every card's activity as one union, the current card synced
+    ([1], 8.0, [1]),  # a card that is not the current one: its activity alone
+    ([0, 1], 10.0, [0, 1]),  # the union over both cards
+])
+def test_measure_device_seconds_on_the_calls_cards(monkeypatch, cards, busy, synced):
+    """With cards named, the busy time is the union of those cards'
+    activity, and those cards are synchronized; a session in which a named
+    card delivers nothing runs again.  With none named, the union of every
+    card's activity in the first session that has any, the current card
+    synchronized (the first session here has card 0's alone)."""
+    import contextlib
+
+    full = [(0, "K1", 0.0, 4.0), (1, "K1", 2.0, 6.0), (1, "K3", 8.0, 12.0)]
+    sessions, syncs = [], []
+
+    def intervals(prof):
+        sessions.append(prof)
+        return full[:1] if len(sessions) == 1 else full  # card 1 late the first time
+
+    monkeypatch.setattr(profiling, "_require_cuda", lambda: None)
+    monkeypatch.setattr(profiling, "sync_cards", lambda cs: syncs.append(list(cs)))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(profiling, "profile", lambda activities: contextlib.nullcontext("prof"))
+    monkeypatch.setattr(profiling, "device_intervals", intervals)
+    assert profiling.measure_device_seconds(lambda: None, reps=2, cards=cards) == busy / 2 / 1e6
+    assert len(sessions) == (2 if cards and 1 in cards else 1)
+    assert all(s == synced for s in syncs)
 
 # -- python -m dbde_tpu_torch.bench, the counterpart of bench.py ---------------
 
@@ -341,12 +494,12 @@ def test_port_bench_needs_a_gpu():
 def test_bench_raises_when_the_profiler_delivers_nothing(monkeypatch):
     """A profiler that delivers no device records in any session fails the
     bench leg: no line is printed with a device metric missing."""
-    def no_records(fn, reps):
+    def no_records(fn, reps, cards):
         fn()
         raise RuntimeError("the profiler saw no device activity in 3 sessions")
 
-    monkeypatch.setattr(bench_core, "cuda_event_seconds", lambda fn, reps: (fn(), 2e-3)[1])
+    monkeypatch.setattr(bench_core, "cuda_event_seconds", lambda fn, reps, cards: (fn(), 2e-3)[1])
     monkeypatch.setattr(bench_core, "measure_device_seconds", no_records)
     with pytest.raises(RuntimeError, match="no device activity"):
-        bench_core._measure(lambda: None)
+        bench_core._measure(lambda: None, torch.device("cuda", 1))
     assert bench_core._busy_ms(encode=1e-3, decode=2.5e-4) == {"encode": 1.0, "decode": 0.25}
