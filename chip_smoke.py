@@ -54,7 +54,13 @@ suffice).  Phases, one line each, in order:
      and two DbdeWriter.write at pipeline 2 raise nothing, return while the
      device still sleeps, and copy only non_blocking from or into pinned
      memory; a blocking .to(device) of a pageable array does raise; the
-     results equal K2's stream, the frames and the codec's records
+     results equal K2's stream, the frames and the codec's records; then
+     the stream switch: an encode and a decode_dispatch under the caller's
+     stream behind a device sleep, read back on the default stream (the
+     decode after its dispatch's event), equal to the frames and to the
+     codec's records on the default stream, and DbdeReader and iter_video_sharded (2x2 mesh slots) with
+     each next() in turn under the caller's streams and the default ones,
+     the frames exact
   4  timing with CUDA events: each kernel and the encode/decode paths of
      both backends against their plain versions at 16×2048² camera and
      random content, each kernel beside its bound; K2 on the random
@@ -76,7 +82,13 @@ suffice).  Phases, one line each, in order:
      and single-device write and read times, and the shard encodes through
      DbdeCodec.encode beside K1 + K2 alone; with two or more cards, the
      sharded write and read frames/s on meshes of 1, 2 and 4 distinct cards
-     (1x1, 2x1, 4x1, 2x2) beside write_video/read_video, in turns
+     (1x1, 2x1, 4x1, 2x2) beside write_video/read_video, in turns; then
+     python -m dbde_tpu_torch.probe_sharded in-process: split_payload_host
+     and assemble_payload_padded at 16x2048² camera statistics, n_tiles 1,
+     2 and 4, and the host legs of one instrumented sharded write and read
+     of 49 camera 2048² frames, batch 16, on 1x1 and 2x2 mesh slots (and
+     4x1 with four cards), each leg's ms a batch beside the uninstrumented
+     span, the file equal to write_video_sharded's, the frames exact
   6  the CLI on the card, driven in-process through dbde_tpu_torch.cli.main:
      golden (3 frames), info --scan and decode against GOLDEN_8x16_IMAGE;
      at the five geometries of tools/tpu_quickcheck.py (2048² camera and
@@ -128,6 +140,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from dbde_tpu_torch import (DbdeReader, DbdeWriter, cli, graft_entry, read_video, ref_numpy,
                             write_video)
 from dbde_tpu_torch import bench as port_bench
+from dbde_tpu_torch import probe_sharded
 from dbde_tpu_torch.bench_core import make_adversarial, make_content, make_depth_runs
 from dbde_tpu_torch.codec import (
     DbdeCodec,
@@ -136,6 +149,7 @@ from dbde_tpu_torch.codec import (
     all_depth8,
     pack_frames_bytes,
     pinned_cache_bytes,
+    record_event,
     record_iovecs,
     unpack_frames_bytes,
 )
@@ -159,6 +173,7 @@ from dbde_tpu_torch.parallel import (
     write_video_sharded,
 )
 from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_FILE
+from dbde_tpu_torch.soak import callers_streams, next_switching_streams
 from dbde_tpu_torch.utils.profiling import card_name, cuda_event_seconds, measure_device_seconds
 from dbde_tpu_torch.utils.visualize import read_pgm
 
@@ -732,7 +747,53 @@ def check_async(device: torch.device, camera: np.ndarray, random: np.ndarray) ->
              f"the checked calls waited for the device ({summary['seconds']:.3f} s)")
     _require(summary["pageable copy raised"],
              "a blocking copy from pageable memory did not raise: the sync check is not live")
+    summary["stream switch"] = check_stream_switch(device, camera, random)
     return summary
+
+
+def check_stream_switch(device: torch.device, camera: np.ndarray, random: np.ndarray) -> str:
+    """Phase 3c, the stream switch: an encode of ``random`` and a
+    ``decode_dispatch`` of ``camera`` under the caller's stream behind a
+    device sleep (``soak.callers_streams``), read back on the default
+    stream (the decode after the event recorded at its dispatch): the
+    records equal the codec's on the default stream, the frames exact.
+    Then ``DbdeReader`` and ``iter_video_sharded`` on 2x2 mesh slots over
+    the visible cards read a file of both batches with each ``next()`` in
+    turn under the caller's streams and the default ones
+    (``soak.next_switching_streams``): the frames exact.  Returns what
+    was checked."""
+    B, H, W = camera.shape
+    codec = DbdeCodec(H, W, device=device)
+    want = pack_frames_bytes(codec.encode(random))
+    enc_camera = codec.encode(camera)
+    _sync(device)
+    with callers_streams([device]):
+        enc = codec.encode(random)
+        pending = codec.decode_dispatch(enc_camera.depths, enc_camera.mins, enc_camera.payload)
+        done = record_event(device)
+    _require(pack_frames_bytes(enc) == want,
+             "an encode under the caller's stream, read back on the default one, differs")
+    _require(np.array_equal(codec.materialize(pending, after=done), camera),
+             "a decode under the caller's stream, materialized on the default one, differs")
+    frames = np.concatenate([camera, random])
+    mesh = make_mesh(2, 2, devices=mesh_slots(4, visible_devices(device)))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "switch.dbde")
+        write_video(path, frames, device=device, batch_size=B)
+        for pipeline in (1, 2):
+            with DbdeReader(path, batch_size=B, device=device, pipeline=pipeline) as rd:
+                got = next_switching_streams(rd, [device])
+            _require(np.array_equal(np.concatenate([f for _, f in got]), frames),
+                     f"DbdeReader at pipeline {pipeline} on switching streams differs")
+            got = next_switching_streams(
+                iter_video_sharded(path, mesh, batch_size=B, pipeline=pipeline),
+                list(mesh.devices.flat))
+            _require(np.array_equal(np.concatenate([f for _, f in got]), frames),
+                     f"iter_video_sharded at pipeline {pipeline} on switching streams differs")
+    return ("encode and decode_dispatch under the caller's stream read back on the default "
+            "one, DbdeReader and iter_video_sharded (2x2 mesh on "
+            + ",".join(str(d) for d in mesh.devices.flat)
+            + ") at pipelines 1 and 2 with next() on switching streams: exact")
 
 
 def check_tiles_path(device: torch.device, batches) -> tuple[dict, float]:
@@ -1538,6 +1599,15 @@ def main() -> int:
         print("phase 5 distinct cards on " + "; ".join(f"cuda:{i} {v}" for i, v in names.items()))
     else:
         print("phase 5 distinct cards: one card visible; meshes of distinct cards need two")
+    t0 = time.perf_counter()
+    glue = probe_sharded.time_glue(2048, 2048, 16, (1, 2, 4))
+    for line in probe_sharded.glue_lines(2048, 2048, 16, glue):
+        print(f"phase 5 probe part 1: {line} on {card}", flush=True)
+    for mesh in probe_sharded.default_meshes(cards):
+        result = probe_sharded.probe_mesh(stream_frames[:49], mesh, 16)
+        for line in probe_sharded.mesh_lines(result, "phase 5 "):
+            print(f"{line} on {card}", flush=True)
+    print(f"phase 5 probe took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"phase 5 took {time.perf_counter() - t5:.1f} s", flush=True)
 
     # the profiler's first start is set-up too, which the first bench would

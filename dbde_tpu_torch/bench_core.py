@@ -211,8 +211,9 @@ def run_stream_bench(width: int = 2048, height: int = 2048, frames: int = 64,
     """End-to-end sustained streaming (BASELINE configs[2]/[4]): host clock
     around a whole file written with ``DbdeWriter`` and read back with
     ``DbdeReader`` on ``device``, record assembly and parse, host↔device
-    copies, codec and file IO included; the read checks every batch
-    against its source frames.  The best of ``repeats`` is reported."""
+    copies, codec and file IO included; the read checks every frame
+    against its source frame, by the headers' indices.  The best of
+    ``repeats`` is reported."""
     npix = frames * height * width
     src = make_content(width, height, min(frames, 64), content)
     own = path is None
@@ -240,11 +241,10 @@ def run_stream_bench(width: int = 2048, height: int = 2048, frames: int = 64,
             got = 0
             with DbdeReader(path, batch_size=batch_size, device=device) as rd:
                 for headers, out in rd:
-                    base = headers[0].index % src.shape[0]
-                    n = len(headers)
-                    if base + n <= src.shape[0]:
-                        _check_frames(out, src[base : base + n], "run_stream_bench's read")
-                    got += n
+                    # file frame i holds src[i % len(src)], wrapped or not
+                    index = np.array([h.index for h in headers]) % src.shape[0]
+                    _check_frames(out, src[index], "run_stream_bench's read")
+                    got += len(headers)
             t_read.append(time.perf_counter() - t0)
             if got != frames:
                 raise AssertionError(f"read {got} frames of {frames}")

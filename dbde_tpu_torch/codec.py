@@ -97,6 +97,18 @@ class HostCopy:
         return [torch.empty(h.shape, dtype=h.dtype).copy_(h).numpy() for h in self.host]
 
 
+def record_event(device: torch.device):
+    """An event recorded on ``device``'s current stream, after the work
+    enqueued there so far (None on the CPU, whose calls finish before they
+    return).  A copy back that waits for it (``HostCopy(after=...)``)
+    reads that work's output on whatever stream the copy runs."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 def pinned_cache_bytes(device: torch.device) -> int:
     """Bytes of pinned memory in torch's pinned-memory cache, blocks in use
     and free alike, where :class:`HostCopy` and :meth:`DbdeCodec.stage`
@@ -106,11 +118,12 @@ def pinned_cache_bytes(device: torch.device) -> int:
     return torch.cuda.host_memory_stats().get("allocated_bytes.current", 0)
 
 
-def _host(a) -> np.ndarray:
+def _host(a, after=None) -> np.ndarray:
     """A tensor or array → a host array for immediate use: on a CUDA
     device a view of pinned memory that goes back to torch's pinned cache
-    once dropped (:meth:`HostCopy.wait`)."""
-    return HostCopy([a]).wait()[0] if isinstance(a, torch.Tensor) else np.asarray(a)
+    once dropped (:meth:`HostCopy.wait`), copied after the event
+    ``after``."""
+    return HostCopy([a], after=after).wait()[0] if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _host_tensor(a, dtype: torch.dtype) -> torch.Tensor:
@@ -165,6 +178,10 @@ class EncodedBatch:
     # speculative variant, so every payload is valid as returned
     depth_bound: int | None = None
     depth_exact: int | None = None
+    # recorded on the encode's stream after its kernels (None on the CPU
+    # and for arrays from the host): the copies back wait for it, so they
+    # may run on any stream
+    event: torch.cuda.Event | None = None
 
     def payload_host(self, max_words: int | None = None) -> np.ndarray:
         """Payload as a (B, S) u32 host array, the caller's to keep; with
@@ -173,7 +190,7 @@ class EncodedBatch:
         p = self.payload
         if max_words is not None and max_words < p.shape[1]:
             p = p[:, :max_words]
-        return HostCopy([p]).keep()[0]
+        return HostCopy([p], after=self.event).keep()[0]
 
     @classmethod
     def from_numpy(cls, depths, mins, payload, n64, device) -> "EncodedBatch":
@@ -187,7 +204,8 @@ class EncodedBatch:
 
     def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """→ (depths (B,T) u8, mins (B,T) u8, payload (B,S) u32, n64 (B,) i32)."""
-        return tuple(HostCopy([self.depths, self.mins, self.payload, self.n64]).keep())
+        return tuple(HostCopy([self.depths, self.mins, self.payload, self.n64],
+                              after=self.event).keep())
 
 
 class DbdeCodec:
@@ -294,14 +312,15 @@ class DbdeCodec:
             T = self.tiles
             d, m, payload, n64 = tile_layout.encode_tiles(tile_layout.image_to_tiles_w(x), T)
             return EncodedBatch(depths=d[:, :T].contiguous(), mins=m[:, :T].contiguous(),
-                                payload=payload, n64=n64)
+                                payload=payload, n64=n64, event=record_event(self.device))
         mixed = torch.empty((1,), dtype=torch.int32, device=self.device)
         depths, mins = band.encode_depths(x, mixed)
         # K2, then K4 (static layout: tile t at word 16*t), into the same
         # payload and n64: the flag lets exactly one of them write
         payload, n64 = band.encode_payload(x, depths, mins, mixed=mixed)
         band.encode_payload_u8(x, mins, out=payload, n64=n64, mixed=mixed)
-        return EncodedBatch(depths=depths, mins=mins, payload=payload, n64=n64)
+        return EncodedBatch(depths=depths, mins=mins, payload=payload, n64=n64,
+                            event=record_event(self.device))
 
     def encode_general(self, images) -> EncodedBatch:
         """Same as :meth:`encode` (there is no specialised variant to bypass)."""
@@ -317,27 +336,50 @@ class DbdeCodec:
         unchanged until :meth:`materialize` of the result returns."""
         H, W = self.height, self.width
         on_device = isinstance(depths, torch.Tensor) and depths.device.type != "cpu"
-        if self.backend == "band" and not on_device and all_depth8(depths):
-            m, p = self._put((mins, torch.uint8), (payload, torch.uint32))
-            return band.decode_frames_u8(m, p, H, W)
+        if self.backend == "band" and not on_device:
+            uniform, items = self._band_inputs(depths, mins, payload)
+            return self._band_kernels(uniform, self._put(*items))
         d, m, p = self._put((depths, torch.uint8), (mins, torch.uint8), (payload, torch.uint32))
         if self.backend == "tiles":
             tp = tile_layout.pad_tiles(self.tiles)
             tw = tile_layout.decode_tiles(tile_layout.pad_last(d, tp),
                                           tile_layout.pad_last(m, tp), p)
             return tile_layout.tiles_w_to_image(tw, H, W)
-        if not on_device or p.shape[1] < self.max_payload_words:
+        if p.shape[1] < self.max_payload_words:
             return band.decode_frames(d, m, p, H, W)
         mixed = band.mixed_flag(d)
         out = band.decode_frames(d, m, p, H, W, mixed=mixed)
         return band.decode_frames_u8(m, p, H, W, out=out, mixed=mixed)
 
-    def materialize(self, pending: torch.Tensor) -> np.ndarray:
+    def _band_inputs(self, depths, mins, payload) -> tuple[bool, list]:
+        """The band decode from host depths: (whether every tile is depth 8,
+        the (array, dtype) pairs it puts on the card: minima and payload,
+        and the depths first unless every tile is depth 8, as K5 reads
+        none)."""
+        uniform = all_depth8(depths)
+        items = [(mins, torch.uint8), (payload, torch.uint32)]
+        return uniform, items if uniform else [(depths, torch.uint8)] + items
+
+    def _band_kernels(self, uniform: bool, on_card) -> torch.Tensor:
+        """K5 from (minima, payload) on the card where ``uniform``, else K3
+        from (depths, minima, payload)."""
+        if uniform:
+            return band.decode_frames_u8(*on_card, self.height, self.width)
+        return band.decode_frames(*on_card, self.height, self.width)
+
+    def materialize(self, pending: torch.Tensor, after=None) -> np.ndarray:
         """Pending decode → (B, H, W) u8 numpy, the caller's to keep.  On a
-        CUDA codec the frames come back through pinned memory, on the compute
-        stream after the work enqueued there so far, and are then copied
-        into pageable memory."""
-        return HostCopy([pending]).keep()[0]
+        CUDA codec the frames come back through pinned memory, on the
+        current stream after the work enqueued there so far, and are then
+        copied into pageable memory.
+
+        ``pending`` is a bare tensor, as the JAX codec's is a bare array,
+        so it follows torch's rule for a tensor used on another stream:
+        materialize it on the stream of its dispatch, after the caller's
+        own ``wait_stream``, or with ``after``, an event recorded on the
+        dispatch's stream after it (:func:`record_event`), which the copy
+        waits for, as the reader does."""
+        return HostCopy([pending], after=after).keep()[0]
 
     def decode(self, depths, mins, payload) -> np.ndarray:
         """Encoded arrays → (B, H, W) u8 numpy frames."""
@@ -392,11 +434,11 @@ def record_iovecs(depths, mins, payload, n64, indices=None, elapsed_ns=None) -> 
 
 def pack_frames_bytes(enc: EncodedBatch, indices=None, elapsed_ns=None) -> list[bytes]:
     """EncodedBatch → list of per-frame bytes (20 B header + frame data)."""
-    n64 = _host(enc.n64)
+    n64 = _host(enc.n64, enc.event)
     # copy only the live payload prefix (the buffer is worst-case sized)
     mx = 2 * int(n64.max()) if len(n64) else 0
-    iov = record_iovecs(_host(enc.depths), _host(enc.mins), _host(enc.payload[:, :mx]),
-                        n64, indices, elapsed_ns)
+    iov = record_iovecs(_host(enc.depths, enc.event), _host(enc.mins, enc.event),
+                        _host(enc.payload[:, :mx], enc.event), n64, indices, elapsed_ns)
     k = RECORD_IOVECS_PER_FRAME
     return [b"".join(iov[k * b : k * (b + 1)]) for b in range(len(n64))]
 

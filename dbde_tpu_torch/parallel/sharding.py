@@ -47,7 +47,7 @@ import collections
 import numpy as np
 import torch
 
-from ..codec import DbdeCodec, HostCopy, _host, record_iovecs, resolve_device
+from ..codec import DbdeCodec, HostCopy, _host, record_event, record_iovecs, resolve_device
 from ..format import VideoHeader, tile_grid
 from ..ops.bitpack import MAX_WORDS_PER_TILE
 from ..stream import DbdeReader, _writev_all
@@ -151,6 +151,25 @@ def _pad_rows(images: np.ndarray, rows: int) -> np.ndarray:
     return np.concatenate([images, np.repeat(images[:, -1:], rows - H, axis=1)], axis=1)
 
 
+def _pad_data(batch: np.ndarray, n_data: int) -> np.ndarray:
+    """A batch padded to whole data shards with repeats of its last frame
+    (the writer's tail; the file drops them)."""
+    pad = -batch.shape[0] % n_data
+    return np.concatenate([batch, np.repeat(batch[-1:], pad, 0)]) if pad else batch
+
+
+def _shard_codecs(mesh: Mesh, L: int, W: int) -> list[list[DbdeCodec]]:
+    """One codec a shard, for bands of ``L`` rows of ``W`` on its device."""
+    return [[DbdeCodec(L, W, device=dev) for dev in row] for row in mesh.devices]
+
+
+def _band(images: np.ndarray, d: int, t: int, B_loc: int, L: int) -> np.ndarray:
+    """Shard (d, t)'s band of padded frames: frames ``[d*B_loc, (d+1)*B_loc)``,
+    pixel rows ``[t*L, (t+1)*L)`` (a view, contiguous only where ``L`` is
+    every row)."""
+    return images[d * B_loc:(d + 1) * B_loc, t * L:(t + 1) * L]
+
+
 def _encode_shards(images: np.ndarray, mesh: Mesh):
     """Encode every shard's band on its device → rows of (codec, EncodedBatch).
 
@@ -163,15 +182,8 @@ def _encode_shards(images: np.ndarray, mesh: Mesh):
     B_loc = _local_batch(B, n_data)
     images = _pad_rows(images, 8 * h)
     L = 8 * h_loc
-    grid = []
-    for d in range(n_data):
-        row = []
-        for t in range(n_tiles):
-            codec = DbdeCodec(L, W, device=mesh.devices[d, t])
-            row.append((codec, codec.encode(images[d * B_loc:(d + 1) * B_loc,
-                                                   t * L:(t + 1) * L])))
-        grid.append(row)
-    return grid
+    return [[(codec, codec.encode(_band(images, d, t, B_loc, L))) for t, codec in enumerate(row)]
+            for d, row in enumerate(_shard_codecs(mesh, L, W))]
 
 
 def _totals_bases(row) -> tuple[torch.Tensor, torch.Tensor]:
@@ -201,15 +213,32 @@ def encode_sharded(images, mesh: Mesh, backend: str = "auto"):
     _check_backend(backend)
     images = np.asarray(images, dtype=np.uint8)
     B, H, W = images.shape
-    n_data, n_tiles = mesh.devices.shape
-    _, w, h_loc = _band_geometry(W, H, n_tiles)
     grid = _encode_shards(images, mesh)
-    # copies back in two rounds, each enqueued for every shard before the
-    # first is waited for: the totals, which size each shard's live
-    # payload, then every shard's depths, minima and live payload prefix
+    totals, bases = _copy_totals(grid)
+    depths, mins, payload = _copy_fields(grid, totals, B, H, W)
+    return depths, mins, payload, totals, bases, 8 * tile_grid(W, H)[0]
+
+
+# The copies back of an encode, in two rounds, each enqueued for every
+# shard before the first is waited for: the totals, which size each
+# shard's live payload, then every shard's depths, minima and live payload
+# prefix.
+
+
+def _copy_totals(grid) -> tuple[np.ndarray, np.ndarray]:
+    """The first round: every data row's (totals, bases), each (n_tiles, B)
+    i32 on the host."""
     sums = [copy.wait() for copy in [HostCopy(_totals_bases(row)) for row in grid]]
-    totals = np.concatenate([t for t, _ in sums], axis=1)
-    bases = np.concatenate([b for _, b in sums], axis=1)
+    return (np.concatenate([t for t, _ in sums], axis=1),
+            np.concatenate([b for _, b in sums], axis=1))
+
+
+def _copy_fields(grid, totals: np.ndarray, B: int, H: int, W: int):
+    """The second round: (depths (B, T) u8, mins (B, T) u8, payload (B,
+    n_tiles*S_local) u32 segments), each shard's payload copied up to its
+    largest total."""
+    n_data, n_tiles = len(grid), len(grid[0])
+    _, w, h_loc = _band_geometry(W, H, n_tiles)
     B_loc, T_loc = B // n_data, h_loc * w
     copies = []
     for d, row in enumerate(grid):
@@ -224,7 +253,7 @@ def encode_sharded(images, mesh: Mesh, backend: str = "auto"):
         frames, tiles = slice(d * B_loc, (d + 1) * B_loc), slice(t * T_loc, (t + 1) * T_loc)
         depths[frames, tiles], mins[frames, tiles], live = copy.wait()
         payload[frames, t, :live.shape[1]] = live
-    return depths, mins, payload.reshape(B, -1), totals, bases, 8 * tile_grid(W, H)[0]
+    return depths, mins, payload.reshape(B, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +272,9 @@ def decode_sharded_dispatch(depths, mins, segments, mesh: Mesh, H: int, W: int,
     Each shard gets its host depths, so its K3/K5 choice waits for nothing.
     ``Hp`` and ``uniform8`` are accepted for the JAX package's contract and
     change nothing: the band geometry follows from H, and the uniform
-    choice is exact per shard.
+    choice is exact per shard.  Each shard's event is recorded on its
+    card's current stream after its decode, and its copy back waits for
+    it, so the value may be materialized under any current stream.
     """
     _check_backend(backend)
     n_data, n_tiles = mesh.devices.shape
@@ -254,32 +285,51 @@ def decode_sharded_dispatch(depths, mins, segments, mesh: Mesh, H: int, W: int,
         raise ValueError(f"segments must be (B, n_tiles*S), got {segments.shape} "
                          f"for {n_tiles} bands")
     S = segments.shape[1] // n_tiles
-    T_loc = h_loc * w
-    pending = []
-    for d in range(n_data):
-        frames = slice(d * B_loc, (d + 1) * B_loc)
-        row = []
-        for t in range(n_tiles):
-            tiles = slice(t * T_loc, (t + 1) * T_loc)
-            codec = DbdeCodec(8 * h_loc, W, device=mesh.devices[d, t])
-            row.append(codec.decode_dispatch(depths[frames, tiles], mins[frames, tiles],
-                                             segments[frames, t * S:(t + 1) * S]))
-        pending.append(row)
-    return pending
+    return [[_dispatched(codec, codec.decode_dispatch(
+                *_shard_fields(depths, mins, segments, d, t, B_loc, h_loc * w, S)))
+             for t, codec in enumerate(row)]
+            for d, row in enumerate(_shard_codecs(mesh, 8 * h_loc, W))]
+
+
+def _shard_fields(depths, mins, segments, d: int, t: int, B_loc: int, T_loc: int, S: int):
+    """Shard (d, t)'s (depths, minima, segment) views of the host arrays."""
+    frames, tiles = slice(d * B_loc, (d + 1) * B_loc), slice(t * T_loc, (t + 1) * T_loc)
+    return depths[frames, tiles], mins[frames, tiles], segments[frames, t * S:(t + 1) * S]
+
+
+def _dispatched(codec: DbdeCodec, frames: torch.Tensor):
+    """A shard's pending decode and the event recorded after it on its
+    card's current stream (None on the CPU)."""
+    return frames, record_event(codec.device)
+
+
+def _copy_back(pending) -> list[list[HostCopy]]:
+    """Every shard's copy to the host, enqueued after its dispatch's event."""
+    return [[HostCopy([frames], after=done) for frames, done in row] for row in pending]
+
+
+def _place(out: np.ndarray, d: int, t: int, band: np.ndarray) -> None:
+    """Shard (d, t)'s decoded band into its place in the uncropped output."""
+    B_loc, L = band.shape[:2]
+    out[d * B_loc:(d + 1) * B_loc, t * L:(t + 1) * L] = band
+
+
+def _shard_out(pending) -> np.ndarray:
+    """The uncropped (B, n_tiles*L, W) u8 output of a pending decode."""
+    B_loc, L, Wd = pending[0][0][0].shape
+    return np.empty((len(pending) * B_loc, len(pending[0]) * L, Wd), np.uint8)
 
 
 def decode_sharded_materialize(pending, H: int, W: int) -> np.ndarray:
     """Wait for a :func:`decode_sharded_dispatch` value → (B, H, W) u8:
     every shard copied to the host into its place, cropped to the frame.
-    Every shard's copy goes through pinned memory (:class:`HostCopy`) and
-    is enqueued before the first is waited for."""
-    n_data, n_tiles = len(pending), len(pending[0])
-    B_loc, L, Wd = pending[0][0].shape
-    out = np.empty((n_data * B_loc, n_tiles * L, Wd), np.uint8)
-    copies = [[HostCopy([band]) for band in row] for row in pending]
-    for d, row in enumerate(copies):
+    Every shard's copy goes through pinned memory (:class:`HostCopy`),
+    waits for its dispatch's event and is enqueued before the first is
+    waited for."""
+    out = _shard_out(pending)
+    for d, row in enumerate(_copy_back(pending)):
         for t, copy in enumerate(row):
-            out[d * B_loc:(d + 1) * B_loc, t * L:(t + 1) * L] = copy.wait()[0]
+            _place(out, d, t, copy.wait()[0])
     return out[:, :H, :W]
 
 
@@ -302,8 +352,8 @@ def sharded_roundtrip_step(images, mesh: Mesh, backend: str = "auto"):
     B, H, W = images.shape
     unit = 8 * mesh.shape["tiles"]
     grid = _encode_shards(_pad_rows(images, -(-H // unit) * unit), mesh)
-    pending = [[codec.decode_dispatch(enc.depths, enc.mins, enc.payload) for codec, enc in row]
-               for row in grid]
+    pending = [[_dispatched(codec, codec.decode_dispatch(enc.depths, enc.mins, enc.payload))
+                for codec, enc in row] for row in grid]
     first = mesh.devices[0, 0]
     n64 = torch.stack([enc.n64.sum(dtype=torch.int64).to(first)
                        for row in grid for _, enc in row]).sum()
@@ -398,6 +448,22 @@ def split_payload_host(payload, depths, H: int, W: int, n_tiles: int,
 # ---------------------------------------------------------------------------
 
 
+def _write_step(batch_size: int, n_data: int) -> int:
+    """The writer's batch: ``batch_size`` rounded down to whole data shards."""
+    return max(batch_size - batch_size % n_data, n_data)
+
+
+def _assemble(payload, totals, buf):
+    """:func:`assemble_payload_padded` into ``buf`` (None at first) →
+    (matrix, n64, the buffer for the next batch).  The buffer is reused
+    across batches: ``os.writev`` is synchronous, so it is free the moment
+    ``_writev_all`` returns."""
+    pay, n64 = assemble_payload_padded(payload, totals, out=buf)
+    if buf is None or pay.shape[1] > buf.shape[1]:
+        buf = pay if pay.base is None else None
+    return pay, n64, buf
+
+
 def write_video_sharded(path, frames, mesh: Mesh, frame_hz: float = 1.0,
                         backend: str = "auto", batch_size: int = 16,
                         hz_as_integer: bool = False) -> None:
@@ -413,24 +479,30 @@ def write_video_sharded(path, frames, mesh: Mesh, frame_hz: float = 1.0,
     frames = np.asarray(frames, dtype=np.uint8)
     N, H, W = frames.shape
     n_data = mesh.shape["data"]
-    step = max(batch_size - batch_size % n_data, n_data)
-    pay_buf = None  # reused across batches: os.writev is synchronous, so
-    # the buffer is free the moment _writev_all returns
+    step = _write_step(batch_size, n_data)
+    pay_buf = None
     with open(path, "wb") as f:
         f.write(VideoHeader(height=H, width=W, frame_hz=frame_hz).pack(hz_as_integer))
         f.flush()  # the records below bypass the buffer via writev on the fd
         for i in range(0, N, step):
             batch = frames[i : i + step]
             n = batch.shape[0]
-            if n % n_data:
-                pad = n_data - n % n_data
-                batch = np.concatenate([batch, np.repeat(batch[-1:], pad, 0)])
-            depth, mn, payload, totals, _, _ = encode_sharded(batch, mesh, backend=backend)
-            pay, n64 = assemble_payload_padded(payload, totals, out=pay_buf)
-            if pay_buf is None or pay.shape[1] > pay_buf.shape[1]:
-                pay_buf = pay if pay.base is None else None
+            depth, mn, payload, totals, _, _ = encode_sharded(_pad_data(batch, n_data), mesh,
+                                                              backend=backend)
+            pay, n64, pay_buf = _assemble(payload, totals, pay_buf)
             iov = record_iovecs(depth[:n], mn[:n], pay[:n], n64[:n], indices=range(i, i + n))
             _writev_all(f.fileno(), iov)
+
+
+def _pad_records(depths, mins, payload, n_data: int):
+    """A parsed batch padded to whole data shards with zero records (depth
+    0 everywhere; the walker crops them after the decode)."""
+    pad = -depths.shape[0] % n_data
+    if not pad:
+        return depths, mins, payload
+    z8 = np.zeros((pad, depths.shape[1]), np.uint8)
+    return (np.concatenate([depths, z8]), np.concatenate([mins, z8]),
+            np.concatenate([payload, np.zeros((pad, payload.shape[1]), np.uint32)]))
 
 
 def iter_video_sharded(path, mesh: Mesh, backend: str = "auto",
@@ -450,7 +522,10 @@ def iter_video_sharded(path, mesh: Mesh, backend: str = "auto",
     A tail batch that does not fill the data axis is padded with zero
     records (depth 0 everywhere) and cropped after the decode.  A segment
     buffer returns to its pool only after its batch materialized, which
-    implies its host→device copies are done.
+    implies its host→device copies are done.  Each shard's copy back waits
+    for the event recorded at its dispatch
+    (:func:`decode_sharded_dispatch`), so the frames do not depend on the
+    stream current at each ``next()``.
     """
     n_data = mesh.shape["data"]
     n_tiles = mesh.shape["tiles"]
@@ -466,28 +541,22 @@ def iter_video_sharded(path, mesh: Mesh, backend: str = "auto",
             item = next(raw, None)
             if item is None:
                 return False
-            headers, (depths, mins, payload, _) = item
-            n = len(headers)
-            if n % n_data:
-                pad = n_data - n % n_data
-                z8 = np.zeros((pad, depths.shape[1]), np.uint8)
-                depths = np.concatenate([depths, z8])
-                mins = np.concatenate([mins, z8])
-                payload = np.concatenate([payload, np.zeros((pad, payload.shape[1]), np.uint32)])
+            headers, arrays = item
+            depths, mins, payload = _pad_records(*arrays[:3], n_data)
             free = seg_pool.setdefault(depths.shape[0], [])
             segments = split_payload_host(payload, depths, H, W, n_tiles, backend,
                                           out=free.pop() if free else None)
             out = decode_sharded_dispatch(depths, mins, segments, mesh, H=H, W=W, Hp=Hp,
                                           backend=backend, uniform8=uniform8)
-            pending.append((headers, out, n, segments))
+            pending.append((headers, out, segments))
             return True
 
         while len(pending) < pipeline and dispatch():
             pass
         while pending:
             dispatch()  # parse + split + launch the next batch while this one runs
-            headers, out, n, segments = pending.popleft()
-            frames = decode_sharded_materialize(out, H, W)[:n]
+            headers, out, segments = pending.popleft()
+            frames = decode_sharded_materialize(out, H, W)[:len(headers)]
             seg_pool[segments.shape[0]].append(segments)  # decoded ⇒ copies done
             yield headers, frames
 

@@ -40,7 +40,13 @@ tolerance 0 (:func:`run_case`):
     n_tiles)`` mesh laid over every visible card in turn
     (``parallel.mesh_slots``; on one card, or the CPU, every slot is that
     device), with B not a multiple of ``n_data`` and H not of
-    ``8 * n_tiles``.
+    ``8 * n_tiles``;
+  * in the caller's-stream regime, the writer, an encode and a
+    ``decode_dispatch`` under streams of the caller's (a new stream made
+    current on each card, behind a device sleep), their results read back
+    on the streams current before, and ``DbdeReader`` and
+    ``iter_video_sharded`` with each ``next()`` in turn under the caller's
+    streams and under the earlier ones (:func:`next_switching_streams`).
 
 The first difference raises :class:`SoakFailure`, which names it: the
 frame and the word, tile, pixel or byte, with both values.  ``main`` prints
@@ -58,6 +64,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import itertools
 import os
 import struct
 import sys
@@ -72,14 +80,15 @@ import torch
 from . import ref_numpy
 from .bench_core import make_adversarial, make_content, make_uniform8
 from .codec import (DbdeCodec, EncodedBatch, pack_frames_bytes, pinned_cache_bytes,
-                    resolve_device)
-from .format import FrameHeader, VideoHeader, tile_grid
+                    record_event, resolve_device)
+from .format import VIDEO_HEADER_BYTES, FrameHeader, VideoHeader, tile_grid
 from .ops import band, tile_layout
 from .ops.bitpack import MAX_WORDS_PER_TILE
 from .parallel import (
     assemble_payload_host,
     decode_sharded,
     encode_sharded,
+    iter_video_sharded,
     make_mesh,
     mesh_slots,
     read_video_sharded,
@@ -91,15 +100,18 @@ from .stream import DbdeReader, DbdeWriter
 from .utils.profiling import card_name, measure_device_cards, measure_device_seconds
 
 PAST_2_31 = "past 2**31 bytes"
+CALLERS_STREAM = "caller's stream"
 DEVICE_CONTENT = "made on the device, mixed then all depth 8"
+# the last two came after the first ten, so that those cases stay as they were
 REGIMES = ("one column", "narrow", "medium", "wide", "seam 0", "seam 1", "seam 1023",
-           "16x2048x2048", "2x4096x4096", PAST_2_31)
+           "16x2048x2048", "2x4096x4096", PAST_2_31, CALLERS_STREAM, "over 4096")
 CONTENTS = ("adversarial shallow", "adversarial 8", "uniform 8", "flat",
             "uniform 8 but one tile", "uniform 8 but one frame")
 UNIFORM = ("uniform 8", "uniform 8 but one tile", "uniform 8 but one frame")
 STREAM_REGIMES = ("one column", "narrow", "medium")
 SHARDED_REGIMES = ("one column", "narrow", "medium", "wide")
-RESIDUE_REGIMES = ("narrow", "medium", "wide", "seam 0", "seam 1", "seam 1023")  # W % 8 drawn
+RESIDUE_REGIMES = ("narrow", "medium", "wide", "seam 0", "seam 1", "seam 1023",  # W % 8 drawn
+                   CALLERS_STREAM, "over 4096")
 # decode routes of DbdeCodec.decode_dispatch, by backend
 ROUTES = {"band": ("host depths", "device depths, stride 16*T", "device depths, narrow stride",
                    "rows off the 16-byte grid"),
@@ -108,6 +120,10 @@ SENTINEL = 0xDEADBEEF
 ORACLE_BYTES = 1 << 20  # frames over this are checked against ref_numpy in their first rows
 ORACLE_TILE_ROWS = 64
 STREAM_PIXELS = 1 << 16  # a stream case's frames hold at most this many pixels
+# the device sleep at the head of the caller's streams: about 10 ms of an
+# H100's clock, so that what is enqueued behind it is still pending when
+# the next call runs on another stream
+SLEEP_CYCLES = 20_000_000
 STEP_TIME_LIMIT = 1.15  # sharded step / single-device round trip (tools/tpu_sharded_check.py:79)
 # check (d): a card's busy time in the step on distinct cards / the single
 # card's round trip.  Each card holds a share of the frames, so above 1.0
@@ -194,6 +210,11 @@ def _draw(rng: np.random.Generator, i: int, residues: np.ndarray, k: int) -> Cas
         W, H = _width(rng, 65, 1024, residue), int(rng.integers(1, 601))
     elif regime == "wide":
         W, H = _width(rng, 1025, 4096, residue), int(rng.integers(1, 301))
+    elif regime == "over 4096":
+        W, H = _width(rng, 4097, 8192, residue), int(rng.integers(1, 301))
+        B = int(rng.integers(1, 3))
+    elif regime == CALLERS_STREAM:
+        W, H = _width(rng, 8, 1024, residue), int(rng.integers(1, 601))
     elif regime.startswith("seam"):
         H, W = _seam_geometry(rng, int(regime.split()[1]), residue)
     else:
@@ -202,14 +223,17 @@ def _draw(rng: np.random.Generator, i: int, residues: np.ndarray, k: int) -> Cas
         if regime == PAST_2_31:
             content = DEVICE_CONTENT
     stream = mesh = None
-    if regime in STREAM_REGIMES and (first or rng.random() < 0.5):
+    callers = regime == CALLERS_STREAM  # always a stream and a mesh
+    if callers or regime in STREAM_REGIMES and (first or rng.random() < 0.5):
         H = min(H, max(1, STREAM_PIXELS // W))
         wb = int(rng.integers(1, 9))
         n = wb * int(rng.integers(1, 4)) + (int(rng.integers(1, wb)) if wb > 1 else 1)
-        wp = 1 + STREAM_REGIMES.index(regime) if first else int(rng.integers(1, 4))
-        rp = 1 + (STREAM_REGIMES.index(regime) + 2) % 3 if first else int(rng.integers(1, 4))
+        if first and not callers:
+            wp, rp = 1 + STREAM_REGIMES.index(regime), 1 + (STREAM_REGIMES.index(regime) + 2) % 3
+        else:
+            wp, rp = int(rng.integers(1, 4)), int(rng.integers(1, 4))
         stream = (n, wb, wp, int(rng.integers(1, 9)), rp)
-    if regime in SHARDED_REGIMES and (i > 0 if first else rng.random() < 0.5):
+    if callers or regime in SHARDED_REGIMES and (i > 0 if first else rng.random() < 0.5):
         n_data, n_tiles = int(rng.integers(1, 5)), int(rng.integers(1, 5))
         if first and regime == "narrow":
             n_data = int(rng.integers(2, 5))
@@ -597,6 +621,79 @@ def check_stream(case: Case, device: torch.device, tally: Tally) -> None:
                           [h.index for h in headers], list(range(n)))
 
 
+@contextlib.contextmanager
+def callers_streams(devices, sleep_cycles: int = SLEEP_CYCLES):
+    """Make a new stream current on each CUDA device of ``devices``, with a
+    device sleep of ``sleep_cycles`` at its head, for the block: a
+    caller's streams, behind which what the block enqueues stays pending
+    for a while.  Nothing on the CPU."""
+    with contextlib.ExitStack() as stack:
+        for dev in dict.fromkeys(d for d in devices if d.type == "cuda"):
+            stack.enter_context(torch.cuda.stream(torch.cuda.Stream(dev)))
+            with torch.cuda.device(dev):
+                torch.cuda._sleep(sleep_cycles)
+        yield
+
+
+def next_switching_streams(iterable, devices, sleep_cycles: int = SLEEP_CYCLES) -> list:
+    """Every item of ``iterable``, each ``next()`` in turn under new
+    :func:`callers_streams` of ``devices`` and under the streams current
+    before: a batch dispatched on one stream is read back on the other."""
+    it, items = iter(iterable), []
+    for i in itertools.count():
+        with callers_streams(devices, sleep_cycles) if i % 2 == 0 else contextlib.nullcontext():
+            item = next(it, None)
+        if item is None:
+            return items
+        items.append(item)
+
+
+def check_callers_stream(case: Case, device: torch.device, tally: Tally) -> None:
+    """The case's writer, an encode and a ``decode_dispatch`` of its first
+    batch under the caller's streams (:func:`callers_streams`), read back
+    on the streams current before (the decode with the event recorded
+    after its dispatch): the file equal to ``ref_numpy.encode_video``, the
+    batch's records to its first records, the decode to its frames.  Then
+    ``DbdeReader`` and ``iter_video_sharded`` on the case's mesh read the
+    file back exact, each ``next()`` on the other streams than the last
+    (:func:`next_switching_streams`)."""
+    n, wb, wp, rb, rp = case.stream
+    n_data, n_tiles = case.mesh
+    tally.at("caller's stream", f"writer pipeline {wp}, reader pipeline {rp}, "
+                                f"mesh {n_data}x{n_tiles}")
+    frames = make_frames(case, B=n)
+    mesh = make_mesh(n_data, n_tiles,
+                     devices=mesh_slots(n_data * n_tiles, visible_devices(device)))
+    want = ref_numpy.encode_video(list(frames), frame_hz=30.0)
+    codec = DbdeCodec(case.H, case.W, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "callers.dbde")
+        with callers_streams([device]):
+            with DbdeWriter(path, case.H, case.W, frame_hz=30.0, device=device,
+                            pipeline=wp) as wr:
+                for i in range(0, n, wb):
+                    wr.write(frames[i:i + wb])
+            enc = codec.encode(frames[:wb])
+            pending = codec.decode_dispatch(enc.depths, enc.mins, enc.payload)
+            done = record_event(device)
+        expect_equal("decode under the caller's stream, materialized after its event",
+                     codec.materialize(pending, after=done), frames[:wb], "pixel")
+        first = len(ref_numpy.encode_video(list(frames[:wb]), frame_hz=30.0))
+        expect_bytes("records of an encode under the caller's stream vs the oracle's",
+                     b"".join(pack_frames_bytes(enc)), want[VIDEO_HEADER_BYTES:first])
+        with open(path, "rb") as f:
+            expect_bytes("DbdeWriter file under the caller's stream vs ref_numpy.encode_video",
+                         f.read(), want)
+        with DbdeReader(path, batch_size=rb, device=device, pipeline=rp) as rd:
+            batches = next_switching_streams(rd, [device])
+        expect_equal("DbdeReader frames, next() on switching streams",
+                     np.concatenate([b for _, b in batches]), frames, "pixel")
+        batches = next_switching_streams(
+            iter_video_sharded(path, mesh, batch_size=rb, pipeline=rp), list(mesh.devices.flat))
+    expect_equal("iter_video_sharded frames, next() on switching streams",
+                 np.concatenate([b for _, b in batches]), frames, "pixel")
+
+
 def check_sharded(case: Case, frames: np.ndarray, plain: Plain, device: torch.device,
                   tally: Tally) -> None:
     """The sharded path on the case's mesh, laid over every visible device
@@ -710,10 +807,13 @@ def run_case(case: Case, device: torch.device, tally: Tally) -> None:
         x = torch.from_numpy(frames).to(device)
         plain = check_kernels(x, tally, rng)
         check_codec(frames, x, plain, tally, rng)
-        if case.stream:
-            check_stream(case, device, tally)
-        if case.mesh:
-            check_sharded(case, frames, plain, device, tally)
+        if case.regime == CALLERS_STREAM:
+            check_callers_stream(case, device, tally)
+        else:
+            if case.stream:
+                check_stream(case, device, tally)
+            if case.mesh:
+                check_sharded(case, frames, plain, device, tally)
     tally.count(case)
 
 

@@ -27,9 +27,12 @@ What keeps pinned memory from being overwritten while a copy reads it:
     the copies that read it have completed;
   * the reader's release gate: its parse slots are pinned and pooled, and
     a slot returns to the pool only after the batch decoded from it is
-    materialized.  The copies from the slot run on the compute stream
-    ahead of the decode, and materializing waits for the decode's output,
-    so a released slot is no longer read by any copy.
+    materialized.  The copies from the slot run on the stream current at
+    the batch's dispatch, ahead of the decode; an event recorded there
+    after the decode is what the batch's copy back waits for, on whatever
+    stream is current when it is materialized, so a released slot is no
+    longer read by any copy and the frames never depend on the caller's
+    current stream.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from typing import Iterator
 
 import numpy as np
 
-from .codec import DbdeCodec, HostCopy, record_iovecs, unpack_frames_bytes
+from .codec import DbdeCodec, HostCopy, record_event, record_iovecs, unpack_frames_bytes
 from .format import (
     FRAME_HEADER_BYTES,
     MAX_DIM,
@@ -343,17 +346,19 @@ class DbdeReader:
             if batch is None:
                 return False
             headers, (depths, mins, payload, _), release = batch
-            pending.append((headers, self._codec.decode_dispatch(depths, mins, payload),
-                            release))
+            frames = self._codec.decode_dispatch(depths, mins, payload)
+            pending.append((headers, frames, record_event(self._codec.device), release))
             return True
 
         while len(pending) < self.pipeline and dispatch():
             pass
         while pending:
             dispatch()  # parse + dispatch the next batch while this one runs
-            headers, frames, release = pending.popleft()
+            headers, frames, done, release = pending.popleft()
             self.frames_read += len(headers)
-            out = self._codec.materialize(frames)  # waits for this batch alone
+            # after the dispatch's event, on the stream current now: the
+            # caller may have switched streams since
+            out = self._codec.materialize(frames, after=done)
             release()  # decode output copied back ⇒ the slot's copies are done
             yield headers, out
 

@@ -19,6 +19,7 @@ from dbde_tpu_torch.stream import _GatedPool
 from dbde_tpu_torch.codec import DbdeCodec, EncodedBatch, pack_frames_bytes
 from dbde_tpu_torch.ops import band, tile_layout, word_offsets
 from dbde_tpu_torch.parallel import visible_devices
+from dbde_tpu_torch.soak import callers_streams, next_switching_streams
 from torch.profiler import ProfilerActivity, profile
 
 pytestmark = pytest.mark.requires_cuda
@@ -462,6 +463,72 @@ def test_codec_keeps_the_callers_stream(cuda):
         out = codec.materialize(pending)
         assert torch.cuda.current_stream(cuda) == mine
     np.testing.assert_array_equal(out, frames)
+
+
+SLEEP_CYCLES = 200_000_000  # about 0.1 s of an H100's clock
+
+
+def test_encode_reads_back_on_another_stream(cuda):
+    """An encode under a caller's stream, behind a device sleep, read back on
+    the default stream: to_numpy, payload_host and the records equal the
+    CPU codec's (the copies wait for the encode's event)."""
+    frames = np.concatenate([make_content(72, 40, 3), make_content(72, 40, 1, kind="random")])
+    B, H, W = frames.shape
+    want = DbdeCodec(H, W, device="cpu").encode(frames)
+    d, m, p, n = want.to_numpy()
+    codec = DbdeCodec(H, W, device=cuda)
+    for read_back in ("to_numpy", "payload_host", "records"):
+        with callers_streams([cuda], SLEEP_CYCLES):
+            enc = codec.encode(frames)
+        if read_back == "to_numpy":
+            gd, gm, gp, gn = enc.to_numpy()
+            np.testing.assert_array_equal(gd, d)
+            np.testing.assert_array_equal(gm, m)
+            np.testing.assert_array_equal(gn, n)
+        elif read_back == "payload_host":
+            gp = enc.payload_host()
+        else:
+            assert pack_frames_bytes(enc) == pack_frames_bytes(want)
+            continue
+        for b in range(B):
+            np.testing.assert_array_equal(gp[b, : 2 * n[b]], p[b, : 2 * n[b]])
+
+
+def test_reader_and_sharded_walker_on_switching_streams(cuda, tmp_path):
+    """DbdeReader and iter_video_sharded with each next() in turn under a
+    caller's stream behind a device sleep and under the default stream,
+    at pipelines 1 and 2: the frames are exact."""
+    from dbde_tpu_torch.parallel import iter_video_sharded, make_mesh
+
+    frames = np.concatenate([make_content(72, 40, 5), make_content(72, 40, 3, kind="random")])
+    path = tmp_path / "s.dbde"
+    write_video(path, frames, device=cuda, batch_size=2)
+    mesh = make_mesh(2, 1, devices=[cuda] * 2)
+    for pipeline in (1, 2):
+        with DbdeReader(path, batch_size=2, device=cuda, pipeline=pipeline) as rd:
+            got = next_switching_streams(rd, [cuda], SLEEP_CYCLES)
+        np.testing.assert_array_equal(np.concatenate([b for _, b in got]), frames)
+        got = next_switching_streams(
+            iter_video_sharded(path, mesh, batch_size=4, pipeline=pipeline), [cuda], SLEEP_CYCLES)
+        np.testing.assert_array_equal(np.concatenate([b for _, b in got]), frames)
+
+
+def test_materialize_after_the_dispatch_event(cuda):
+    """decode_dispatch under a caller's stream behind a device sleep,
+    materialized on the default stream after the event recorded at the
+    dispatch: the frames are exact."""
+    from dbde_tpu_torch.codec import record_event
+
+    frames = np.concatenate([make_content(72, 40, 3), make_content(72, 40, 1, kind="random")])
+    codec = DbdeCodec(40, 72, device=cuda)
+    enc = codec.encode(frames)
+    depths = enc.depths.cpu().numpy()
+    torch.cuda.synchronize(cuda)  # the caller's stream reads the encode's outputs
+    for d in (depths, enc.depths):  # host depths (K3), depths on the card (K3 and K5 gated)
+        with callers_streams([cuda], SLEEP_CYCLES):
+            pending = codec.decode_dispatch(d, enc.mins, enc.payload)
+            done = record_event(cuda)
+        np.testing.assert_array_equal(codec.materialize(pending, after=done), frames)
 
 
 @pytest.fixture

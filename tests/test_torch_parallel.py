@@ -344,3 +344,77 @@ def test_encode_sharded_enqueues_every_copy_before_the_first_wait(monkeypatch, n
     # slot words past each frame's own total are unspecified
     for ours, theirs in zip(assemble_payload_host(payload, totals), assemble_payload_host(wp, wt)):
         np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("n_data,n_tiles,pipeline", [(2, 2, 1), (2, 2, 2), (1, 4, 3)])
+def test_sharded_copies_wait_for_each_shards_dispatch_event(tmp_path, monkeypatch, n_data,
+                                                            n_tiles, pipeline):
+    """iter_video_sharded: each shard's copy back waits for the event
+    recorded right after its own dispatch, on its own card, and a batch's
+    segment buffer is handed out again only after every copy of that batch
+    was waited for.  The frames are those without the stand-ins."""
+    from dbde_tpu_torch.codec import DbdeCodec
+
+    mesh = _mesh(n_data, n_tiles)
+    frames = _frames(B=20, H=32, W=24, seed=29)  # five batches: buffers are reused
+    path = tmp_path / "w.dbde"
+    write_video_sharded(path, frames, mesh, batch_size=4)
+    log, kept = [], []
+
+    class Copy:
+        def __init__(self, tensors, stream=None, after=None):
+            self.tensor = tensors[0]
+            log.append(("copy", id(self.tensor), after))
+
+        def wait(self):
+            log.append(("waited", id(self.tensor)))
+            return [self.tensor.numpy()]
+
+    def record_event(device):
+        token = ("event", len(log), device)
+        log.append(("record", token))
+        return token
+
+    dispatch, split = DbdeCodec.decode_dispatch, sharding.split_payload_host
+
+    def spy_dispatch(self, depths, mins, payload):
+        pending = dispatch(self, depths, mins, payload)
+        kept.append(pending)  # ids stay unique while the test runs
+        log.append(("dispatch", id(pending), self.device))
+        return pending
+
+    def spy_split(*args, out=None, **kwargs):
+        segments = split(*args, out=out, **kwargs)
+        log.append(("split", id(segments), out is not None))
+        kept.append(segments)
+        return segments
+
+    monkeypatch.setattr(sharding, "record_event", record_event)
+    monkeypatch.setattr(sharding, "HostCopy", Copy)
+    monkeypatch.setattr(DbdeCodec, "decode_dispatch", spy_dispatch)
+    monkeypatch.setattr(sharding, "split_payload_host", spy_split)
+    got = np.concatenate([c for _, c in iter_video_sharded(path, mesh, batch_size=4,
+                                                           pipeline=pipeline)])
+    np.testing.assert_array_equal(got, frames)
+    event_of, batch_of, buffer_of, batches = {}, {}, {}, []
+    for i, entry in enumerate(log):
+        if entry[0] == "split":
+            batches.append(set())
+            buffer_of[len(batches) - 1] = entry[1]
+            if entry[2]:  # a pooled buffer: every copy of its last batch was waited for
+                last = max(b for b, buf in buffer_of.items() if buf == entry[1]
+                           and b < len(batches) - 1)
+                assert not batches[last], "a segment buffer went back before its copies"
+        elif entry[0] == "dispatch":
+            token = log[i + 1][1]
+            assert log[i + 1][0] == "record" and token[2] == entry[2], \
+                "no event recorded on the shard's card right after its dispatch"
+            event_of[entry[1]] = token
+            batch_of[entry[1]] = len(batches) - 1
+            batches[-1].add(entry[1])
+        elif entry[0] == "copy":
+            assert entry[2] == event_of[entry[1]], "a copy back waits for another shard's event"
+        elif entry[0] == "waited":
+            batches[batch_of[entry[1]]].discard(entry[1])
+    assert len(batches) == 5 and len(event_of) == 5 * n_data * n_tiles
+    assert any(entry[0] == "split" and entry[2] for entry in log)  # buffers were reused

@@ -22,9 +22,19 @@ def _tiles(c: soak.Case) -> int:
     return c.B * h * w
 
 
-# the first cases of seed 0's plan with at most 20000 tiles, cheap on the CPU
-SMALL = [c.index for c in soak.plan(0, 60)
-         if c.regime != soak.PAST_2_31 and _tiles(c) <= 20_000][:12]
+def _small(n: int = 12) -> list[int]:
+    """``n`` cases of seed 0's plan with at most 20000 tiles, cheap on the
+    CPU: the smallest such case of each regime that has one, then the
+    smallest others."""
+    cases = sorted((c for c in soak.plan(0, 60)
+                    if c.regime != soak.PAST_2_31 and _tiles(c) <= 20_000),
+                   key=lambda c: (_tiles(c), c.index))
+    firsts = {c.regime: c.index for c in reversed(cases)}
+    rest = [c.index for c in cases if c.index not in firsts.values()]
+    return list(firsts.values()) + rest[: n - len(firsts)]
+
+
+SMALL = sorted(_small())
 # a narrow ragged batch for the injected faults: frame 1 has live words
 FAULT_CASE = soak.Case(0, "narrow", 3, 21, 43, "adversarial 8", 8, seed=7)
 

@@ -157,6 +157,8 @@ with tempfile.TemporaryDirectory() as d:
     golden = os.path.join(d, "g.dbde")
     assert cli.main(["golden", "-o", golden, "--frames", "2"]) == 0
     assert cli.main(["info", golden, "--scan"]) == 0
+from dbde_tpu_torch import probe_sharded
+assert probe_sharded.main(["24x16", "2", "1", "--device", "cpu"]) == 0
 assert (out == frames).all()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "dbde_tpu"))
@@ -250,6 +252,15 @@ def test_chip_smoke_sharded_rehearsal_on_cpu(monkeypatch):
         "encode_payload_u8": 16, "decode_u8": 4, "encode_tiles": 0, "decode_tiles": 0}
     monkeypatch.setattr(smoke, "_time_ms", lambda fn, iters: (fn(), 1.0)[1])
     assert smoke.time_shard_encodes(cpu, camera) == (1.0, 1.0)
+
+
+def test_chip_smoke_stream_switch_on_cpu():
+    """Phase 3c's stream switch at a tiny size on the CPU (no streams there:
+    the plain versions, the reader and the sharded walker on 2x2 CPU slots)."""
+    cpu = torch.device("cpu")
+    said = _chip_smoke().check_stream_switch(cpu, make_content(40, 32, 2),
+                                             make_content(40, 32, 2, kind="random"))
+    assert "2x2 mesh on cpu,cpu,cpu,cpu" in said and said.endswith("exact")
 
 
 def test_chip_smoke_main_needs_a_gpu():
@@ -395,9 +406,9 @@ def test_pool_slot_released_only_after_its_materialize(pipeline_frames, pipeline
         events.append(("dispatch", id(depths)))
         return pending
 
-    def spy_materialize(self, pending):
+    def spy_materialize(self, pending, after=None):
         events.append(("materialize", slot_of[id(pending)]))
-        return materialize(self, pending)
+        return materialize(self, pending, after=after)
 
     def spy_acquire(self, key):
         slot = acquire(self, key)
@@ -435,3 +446,80 @@ def test_pool_slot_released_only_after_its_materialize(pipeline_frames, pipeline
             assert slot not in in_use, "a slot in flight was handed out again"
     assert [k for k, _ in events].count("reuse") > 0
     assert ahead == pipeline + 1  # the batch being materialized and `pipeline` ahead
+
+
+class EventLog:
+    """Stand-ins for ``codec.record_event`` and ``codec.HostCopy`` that log,
+    in one list, each event recorded (a token, on the CPU too) and each
+    copy back with the event it was told to wait for, and return what the
+    real ones return on the CPU."""
+
+    def __init__(self):
+        self.log = []
+        log = self.log
+
+        class Copy:
+            def __init__(self, tensors, stream=None, after=None):
+                self.tensors = list(tensors)
+                log.append(("copy", id(self.tensors[0]), after))
+
+            def wait(self):
+                log.append(("waited", id(self.tensors[0])))
+                return [t.numpy() for t in self.tensors]
+
+            keep = wait
+
+        self.Copy = Copy
+
+    def record_event(self, device):
+        token = ("event", sum(1 for entry in self.log if entry[0] == "record"))
+        self.log.append(("record", token))
+        return token
+
+
+@pytest.mark.parametrize("pipeline", [1, 2, 3])
+def test_reader_copy_waits_for_its_own_dispatch_event(pipeline_frames, pipeline_jax_file,
+                                                     tmp_path, monkeypatch, pipeline):
+    """Each batch's copy back waits for the event recorded right after its
+    own dispatch (so it is right on whatever stream the caller has current
+    at that ``next()``), and its slot is released only after that copy is
+    waited for."""
+    from dbde_tpu_torch import codec, stream
+
+    events = EventLog()
+    dispatch, release = codec.DbdeCodec.decode_dispatch, stream._GatedPool.release
+
+    def spy_dispatch(self, depths, mins, payload):
+        pending = dispatch(self, depths, mins, payload)
+        events.log.append(("dispatch", id(pending), id(depths)))
+        spy_dispatch.kept.append(pending)  # ids stay unique while the test runs
+        return pending
+
+    def spy_release(self, key, slot):
+        events.log.append(("release", id(slot[0])))
+        release(self, key, slot)
+
+    spy_dispatch.kept = []
+    monkeypatch.setattr(stream, "record_event", events.record_event)
+    monkeypatch.setattr(codec, "HostCopy", events.Copy)
+    monkeypatch.setattr(codec.DbdeCodec, "decode_dispatch", spy_dispatch)
+    monkeypatch.setattr(stream._GatedPool, "release", spy_release)
+    path = tmp_path / "p.dbde"
+    path.write_bytes(pipeline_jax_file + pipeline_jax_file[VIDEO_HEADER_BYTES:])
+    with DbdeReader(str(path), batch_size=2, device="cpu", pipeline=pipeline) as rd:
+        _, out = rd.read_all()
+    np.testing.assert_array_equal(out, np.concatenate([pipeline_frames] * 2))
+    log = events.log
+    event_of, slot_of, waited = {}, {}, set()
+    for i, entry in enumerate(log):
+        if entry[0] == "dispatch":
+            assert log[i + 1][0] == "record", "no event recorded right after a dispatch"
+            event_of[entry[1]], slot_of[entry[1]] = log[i + 1][1], entry[2]
+        elif entry[0] == "copy":
+            assert entry[2] == event_of[entry[1]], "a copy back waits for another batch's event"
+        elif entry[0] == "waited":
+            waited.add(slot_of[entry[1]])
+        elif entry[0] == "release":
+            assert entry[1] in waited, "a slot was released before its copy back was waited for"
+    copies = [entry for entry in log if entry[0] == "copy"]
+    assert len(copies) == len(event_of) == 6

@@ -503,3 +503,20 @@ def test_bench_raises_when_the_profiler_delivers_nothing(monkeypatch):
     with pytest.raises(RuntimeError, match="no device activity"):
         bench_core._measure(lambda: None, torch.device("cuda", 1))
     assert bench_core._busy_ms(encode=1e-3, decode=2.5e-4) == {"encode": 1.0, "decode": 0.25}
+
+
+def test_run_stream_bench_checks_every_frame(monkeypatch):
+    """At a batch size that does not divide the 64 source frames (12 over
+    70 frames: a batch wraps past the source stack), the read checks every
+    frame, each against src[index % 64]."""
+    src = bench_core.make_content(W, H, 64)
+    wanted, check = [], bench_core._check_frames
+
+    def spy(out, want, what):
+        wanted.append(want)
+        check(out, want, what)
+
+    monkeypatch.setattr(bench_core, "_check_frames", spy)
+    bench_core.run_stream_bench(W, H, frames=70, batch_size=12, repeats=1, device="cpu")
+    assert len(wanted) == 6
+    np.testing.assert_array_equal(np.concatenate(wanted), src[np.arange(70) % 64])
