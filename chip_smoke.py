@@ -40,9 +40,7 @@ suffice).  Phases, one line each, in order:
      encode launching K1, K2 and K4 (one of K2, K4 writing, chosen on the
      card) and its decode K3, or K5 for the random batch; then
      DbdeWriter/DbdeReader at pipeline 2, 1, 1, 2 on the same frames
-     (files equal, reads bit-exact, frames/s each), and the host-clock
-     split of one instrumented pass into stage, parse, h2d, kernels, d2h
-     and write
+     (files equal, reads bit-exact, frames/s each)
   3b the tiles backend: DbdeCodec(backend="tiles") encode → record bytes →
      parse → decode of 16 2048² camera and 16 random frames, bit-exact,
      records equal to the band backend's and the first to the numpy
@@ -82,13 +80,7 @@ suffice).  Phases, one line each, in order:
      and single-device write and read times, and the shard encodes through
      DbdeCodec.encode beside K1 + K2 alone; with two or more cards, the
      sharded write and read frames/s on meshes of 1, 2 and 4 distinct cards
-     (1x1, 2x1, 4x1, 2x2) beside write_video/read_video, in turns; then
-     python -m dbde_tpu_torch.probe_sharded in-process: split_payload_host
-     and assemble_payload_padded at 16x2048² camera statistics, n_tiles 1,
-     2 and 4, and the host legs of one instrumented sharded write and read
-     of 49 camera 2048² frames, batch 16, on 1x1 and 2x2 mesh slots (and
-     4x1 with four cards), each leg's ms a batch beside the uninstrumented
-     span, the file equal to write_video_sharded's, the frames exact
+     (1x1, 2x1, 4x1, 2x2) beside write_video/read_video, in turns
   6  the CLI on the card, driven in-process through dbde_tpu_torch.cli.main:
      golden (3 frames), info --scan and decode against GOLDEN_8x16_IMAGE;
      at the five geometries of tools/tpu_quickcheck.py (2048² camera and
@@ -112,6 +104,15 @@ suffice).  Phases, one line each, in order:
      then check (d): with two or more cards, the step on a mesh of distinct
      cards exact and no card busier than the single card's round trip (one
      card: a line saying it needs two); its summary lines are printed
+  8  the program's spans (dbde_tpu_torch.trace), in a fresh interpreter:
+     DbdeWriter and DbdeReader at pipeline 2 on cuda:0, then
+     write_video_sharded and iter_video_sharded on a 2x2 mesh laid over the
+     visible cards, each under torch.profiler after one unprofiled pass,
+     272 2048² frames (camera, then random), batch 16, files equal to
+     write_video's, reads exact; per program span under the write and the
+     read roots, its calls, total and self ms a batch and the device idle
+     ms under it (the innermost program span open in each gap,
+     utils/profiling.idle_by_span), and each counter a batch
 
 Any failure raises, so the script exits non-zero without the final line.
 Phase 5's and phase 6's launch counts are lines of their own; then a line
@@ -135,32 +136,31 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from dbde_tpu_torch import (DbdeReader, DbdeWriter, cli, graft_entry, read_video, ref_numpy,
                             write_video)
 from dbde_tpu_torch import bench as port_bench
-from dbde_tpu_torch import probe_sharded
+from dbde_tpu_torch import trace
 from dbde_tpu_torch.bench_core import make_adversarial, make_content, make_depth_runs
 from dbde_tpu_torch.codec import (
     DbdeCodec,
     EncodedBatch,
-    HostCopy,
     all_depth8,
     pack_frames_bytes,
     pinned_cache_bytes,
     record_event,
-    record_iovecs,
     unpack_frames_bytes,
 )
-from dbde_tpu_torch.format import VIDEO_HEADER_BYTES, VideoHeader, tile_grid
+from dbde_tpu_torch.format import VIDEO_HEADER_BYTES, tile_grid
 from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_IMAGE, README_10x10_IMAGE
 from dbde_tpu_torch.native import binding as native_binding
 from dbde_tpu_torch.ops import band, tile_layout
 from dbde_tpu_torch.ops.build import build
 from dbde_tpu_torch.ops.build import load as build_load
 from dbde_tpu_torch.ops.payload import word_offsets
-from dbde_tpu_torch.stream import _GatedPool, _writev_all
+from dbde_tpu_torch.stream import _GatedPool
 from dbde_tpu_torch.parallel import (
     assemble_payload_host,
     decode_sharded,
@@ -174,7 +174,9 @@ from dbde_tpu_torch.parallel import (
 )
 from dbde_tpu_torch.golden_vectors import GOLDEN_8x16_FILE
 from dbde_tpu_torch.soak import callers_streams, next_switching_streams
-from dbde_tpu_torch.utils.profiling import card_name, cuda_event_seconds, measure_device_seconds
+from dbde_tpu_torch.utils.profiling import (PROFILE_SESSIONS, card_name, cuda_event_seconds,
+                                            device_intervals, idle_by_span,
+                                            measure_device_seconds)
 from dbde_tpu_torch.utils.visualize import read_pgm
 
 BAND_SOURCE = "dbde_tpu_torch/csrc/dbde_kernels.cu"
@@ -516,8 +518,9 @@ def time_pipelines(device: torch.device, frames: np.ndarray, batch: int, digest:
                    depths=(2, 1, 1, 2)) -> dict[int, list[tuple[float, float]]]:
     """Phase 3: ``DbdeWriter`` then ``DbdeReader`` of ``frames`` at each
     pipeline depth of ``depths`` in turn, host clock, file IO included;
-    every file must have sha256 ``digest`` (write_video's) and every read
-    return the frames.  Returns {pipeline: [(write s, read s), ...]}."""
+    every file must have sha256 ``digest`` (write_video's), every read
+    return the frames, and every batch of frames the reader hands back lie
+    in pageable memory.  Returns {pipeline: [(write s, read s), ...]}."""
     N, H, W = frames.shape
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -531,81 +534,96 @@ def time_pipelines(device: torch.device, frames: np.ndarray, batch: int, digest:
                     wr.write(frames[i : i + batch])
             t1 = time.perf_counter()
             with DbdeReader(path, batch_size=batch, device=device, pipeline=depth) as rd:
-                _, got = rd.read_all()
+                kept = [f for _, f in rd]
+                got = np.concatenate(kept)
             t2 = time.perf_counter()
             _require(_digest(path) == digest and np.array_equal(got, frames),
                      f"pipeline {depth}: the file or the frames read back differ")
+            _require(not any(torch.from_numpy(k).is_pinned() for k in kept),
+                     f"pipeline {depth}: materialize handed back pinned memory")
             os.remove(path)
             out.setdefault(depth, []).append((t1 - t0, t2 - t1))
     return out
 
 
-def stream_split(device: torch.device, frames: np.ndarray, batch: int,
-                 digest: str) -> dict[str, dict[str, float]]:
-    """Phase 3: the host-clock split of one instrumented pass of the
-    streaming path, each stage of each batch run to its end (the device
-    synchronised) before the next starts, so that no two overlap as they do
-    in the pipelined passes:
+def _span_rows(table: dict, idle: dict, batches: int, roots) -> list[str]:
+    """Phase 8: one line a program span or counter of ``table``
+    (:func:`dbde_tpu_torch.trace.totals`) under ``roots``: calls, total and
+    self ms, and the device's idle ms under it (``idle``, by ``(root,
+    name)``; "-" without a card), or a counter's value, each a batch."""
+    rows = []
+    for (root, name), v in sorted(table.items()):
+        if root not in roots:
+            continue
+        if "total_s" in v:
+            gap = idle.get((root, name))
+            rows.append(f"{root}/{name}: calls {v['calls'] / batches:.2f}, total "
+                        f"{1e3 * v['total_s'] / batches:.3f}, self "
+                        f"{1e3 * v['self_s'] / batches:.3f}, idle "
+                        + ("-" if gap is None else f"{1e-3 * gap / batches:.3f}"))
+        else:
+            rows.append(f"{root}/{name}: {v['value'] / batches:.6g}")
+    return rows
 
-      * write: stage (the caller's frames into pinned memory), h2d (to the
-        card), kernels (K1, K2, K4), d2h (n64, depths and minima, then the
-        live payload words), write (``record_iovecs`` + ``writev``);
-      * read: parse (the reader's walk into its pinned, release-gated
-        slots), h2d (depths, minima, payload), kernels (K3, or K5 for an
-        all-depth-8 batch), d2h (``materialize``: into pinned memory, then
-        into the pageable array that is kept to the end, as ``read_video``
-        keeps it; none of the kept arrays may be pinned), concatenate (the
-        one array ``read_video`` returns).
 
-    The file must have sha256 ``digest`` and the frames come back.
-    Returns {"write": {stage: s}, "read": {stage: s}}, summed over the
-    batches."""
+def span_split(device: torch.device, frames: np.ndarray, batch: int, mesh,
+               digest: str) -> dict[str, list[str]]:
+    """Phase 8: the real pipelined write and read under ``torch.profiler``
+    (the program's own spans and counters, :mod:`dbde_tpu_torch.trace`):
+    ``DbdeWriter`` then ``DbdeReader`` at pipeline 2 on ``device``, then
+    ``write_video_sharded`` and ``iter_video_sharded`` on ``mesh``, each
+    after one unprofiled pass of the same calls.  Every file must have
+    sha256 ``digest`` (write_video's) and every read return the frames.
+    Returns {part: lines}, the parts "stream write", "stream read", "mesh
+    write" and "mesh read", each line :func:`_span_rows`' a batch; the idle
+    time comes from each part's cards (none on the CPU), between the
+    part's first and last program span (:func:`idle_by_span`)."""
     N, H, W = frames.shape
-    codec = DbdeCodec(H, W, device=device)
-    split = {"write": dict.fromkeys(("stage", "h2d", "kernels", "d2h", "write"), 0.0),
-             "read": dict.fromkeys(("parse", "h2d", "kernels", "d2h", "concatenate"), 0.0)}
+    n_batches = -(-N // batch)
+    stream_cards = [device.index] if device.type == "cuda" else []
+    mesh_cards = sorted({d.index for d in mesh.devices.flat if d.type == "cuda"})
 
-    def timed(leg: str, stage: str, fn):
-        t0 = time.perf_counter()
-        result = fn()
-        _sync(device)
-        split[leg][stage] += time.perf_counter() - t0
-        return result
-
-    def fetch(enc):
-        n64, depths, mins = HostCopy([enc.n64, enc.depths, enc.mins]).wait()
-        (payload,) = HostCopy([enc.payload[:, : 2 * int(n64.max())]]).wait()
-        return n64, depths, mins, payload
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "split.dbde")
-        with open(path, "wb") as f:
-            f.write(VideoHeader(height=H, width=W, frame_hz=1000.0).pack())
-            f.flush()
+    def stream(path):
+        with DbdeWriter(path, H, W, frame_hz=1000.0, device=device, pipeline=2) as wr:
             for i in range(0, N, batch):
-                chunk = frames[i : i + batch]
-                staged = timed("write", "stage", lambda: codec.stage(chunk))
-                (x,) = timed("write", "h2d", lambda: codec._put((staged, torch.uint8)))
-                enc = timed("write", "kernels", lambda: codec.encode(x))
-                n64, depths, mins, payload = timed("write", "d2h", lambda: fetch(enc))
-                iov = record_iovecs(depths, mins, payload, n64, range(i, i + len(chunk)))
-                timed("write", "write", lambda: _writev_all(f.fileno(), iov))
-        _require(_digest(path) == digest, "the instrumented write's file differs")
-        with DbdeReader(path, batch_size=batch, device=device) as rd:
-            pool, kept = _GatedPool(), []
-            while (parsed := timed("read", "parse", lambda: rd._read_batch_arrays(pool=pool))):
-                headers, (depths, mins, payload, _), release = parsed
-                d, m, p = timed("read", "h2d", lambda: codec._put(
-                    (depths, torch.uint8), (mins, torch.uint8), (payload, torch.uint32)))
-                out = timed("read", "kernels", lambda: band.decode_frames_u8(m, p, H, W)
-                            if all_depth8(depths) else band.decode_frames(d, m, p, H, W))
-                kept.append(timed("read", "d2h", lambda: codec.materialize(out)))
-                release()
-        _require(not any(torch.from_numpy(k).is_pinned() for k in kept),
-                 "materialize handed back pinned memory")
-        got = timed("read", "concatenate", lambda: np.concatenate(kept))
-        _require(np.array_equal(got, frames), "the instrumented read did not return the frames")
-    return split
+                wr.write(frames[i : i + batch])
+        with DbdeReader(path, batch_size=batch, device=device, pipeline=2) as rd:
+            return rd.read_all()[1]
+
+    def sharded(path):
+        write_video_sharded(path, frames, mesh, frame_hz=1000.0, batch_size=batch)
+        return np.concatenate([f for _, f in iter_video_sharded(path, mesh, batch_size=batch,
+                                                                pipeline=2)])
+
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, run, cards in (("stream", stream, stream_cards), ("mesh", sharded, mesh_cards)):
+            run(os.path.join(tmp, f"{label}-warm.dbde"))
+            for c in cards:
+                torch.cuda.synchronize(c)
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cards else [])
+            # a session whose device records never arrive is run again
+            # (utils/profiling.PROFILE_SESSIONS)
+            for _ in range(PROFILE_SESSIONS):
+                path = os.path.join(tmp, f"{label}.dbde")
+                trace.reset()  # sessions back to back add into one table
+                with profile(activities=acts) as prof:
+                    got = run(path)
+                    for c in cards:
+                        torch.cuda.synchronize(c)
+                table = trace.totals()
+                _require(_digest(path) == digest and np.array_equal(got, frames),
+                         f"phase 8 {label}: the file or the frames read back differ")
+                os.remove(path)
+                if not cards or set(cards) <= {iv[0] for iv in device_intervals(prof)}:
+                    break
+            else:
+                raise RuntimeError(f"phase 8 {label}: no device records from cards {cards} in "
+                                   f"{PROFILE_SESSIONS} profiler sessions")
+            idle = idle_by_span(prof.events(), cards) if cards else {}
+            parts[f"{label} write"] = _span_rows(table, idle, n_batches, trace.WRITE_ROOTS)
+            parts[f"{label} read"] = _span_rows(table, idle, n_batches, trace.READ_ROOTS)
+    return parts
 
 
 class TransferLog(TorchDispatchMode):
@@ -1411,6 +1429,44 @@ def run_soak() -> tuple[list[str], int, float]:
     return summary, len(lines) - len(summary), seconds
 
 
+def spans_main() -> int:
+    """Phase 8 in a fresh interpreter, whose first profiler sessions these
+    are (:func:`run_spans`): :func:`span_split` of 4 x 64 camera and 16
+    random 2048x2048 frames, batch 16, on cuda:0 and on a 2x2 mesh laid
+    over the visible cards; its lines, then ``SPANS OK``."""
+    device = torch.device("cuda", 0)
+    camera = make_content(2048, 2048, 64)
+    frames = np.concatenate([camera] * 4 + [make_content(2048, 2048, 16, kind="random")])
+    mesh = make_mesh(2, 2, devices=mesh_slots(4, visible_devices("cuda")))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spans.dbde")
+        write_video(path, frames, frame_hz=1000.0, device=device, batch_size=16)
+        digest = _digest(path)
+    slots = ",".join(str(d.index) for d in mesh.devices.flat)
+    for part, rows in span_split(device, frames, 16, mesh, digest).items():
+        where = "cuda:0" if part.startswith("stream") else f"2x2 mesh on cuda:{slots}"
+        for row in rows:
+            print(f"spans, {part}, {where}, ms a batch: {row}")
+    print("SPANS OK")
+    return 0
+
+
+def run_spans() -> tuple[list[str], float]:
+    """Phase 8: :func:`spans_main` in a fresh interpreter, because the
+    profiler's device records thin out in a process that has profiled for
+    minutes (phase 6).  Returns its lines before ``SPANS OK`` and the
+    seconds it took."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                           "sys.exit(chip_smoke.spans_main())"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    _require(proc.returncode == 0 and lines and lines[-1] == "SPANS OK",
+             f"phase 8: exit {proc.returncode}\n" + "\n".join(lines[-20:])
+             + proc.stderr[-4000:])
+    return lines[:-1], time.perf_counter() - t0
+
+
 def runtime_devices(cards) -> dict[str, int]:
     """Phase 1: the current device of the kernel library's own (static) CUDA
     runtime while torch has each card current, asked before any kernel is
@@ -1507,12 +1563,6 @@ def main() -> int:
                          f"({n / r:.1f} frames/s)" for w, r in runs)
         print(f"phase 3 pipeline={depth}, same frames, files equal, reads bit-exact: {legs} "
               f"on {card}", flush=True)
-    split = stream_split(device, stream_frames, 16, digest)
-    for leg, stages in split.items():
-        total = sum(stages.values())
-        parts = ", ".join(f"{k} {v:.4f} s ({v / total:.1%})" for k, v in stages.items())
-        print(f"phase 3 split, {leg}, one instrumented pass, each stage synchronised: {parts}; "
-              f"sum {total:.4f} s ({n / total:.1f} frames/s) on {card}", flush=True)
     print(f"phase 3 end: torch's pinned-memory cache holds {pinned_cache_bytes(device)} bytes; "
           f"the frames materialize handed back were pageable", flush=True)
 
@@ -1599,15 +1649,6 @@ def main() -> int:
         print("phase 5 distinct cards on " + "; ".join(f"cuda:{i} {v}" for i, v in names.items()))
     else:
         print("phase 5 distinct cards: one card visible; meshes of distinct cards need two")
-    t0 = time.perf_counter()
-    glue = probe_sharded.time_glue(2048, 2048, 16, (1, 2, 4))
-    for line in probe_sharded.glue_lines(2048, 2048, 16, glue):
-        print(f"phase 5 probe part 1: {line} on {card}", flush=True)
-    for mesh in probe_sharded.default_meshes(cards):
-        result = probe_sharded.probe_mesh(stream_frames[:49], mesh, 16)
-        for line in probe_sharded.mesh_lines(result, "phase 5 "):
-            print(f"{line} on {card}", flush=True)
-    print(f"phase 5 probe took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"phase 5 took {time.perf_counter() - t5:.1f} s", flush=True)
 
     # the profiler's first start is set-up too, which the first bench would
@@ -1649,6 +1690,12 @@ def main() -> int:
         print(f"phase 7 soak: {line}")
     print(f"phase 7 soak: python {' '.join(SOAK)} ran {n_cases} cases, every check exact, in a "
           f"subprocess that imported no jax ({seconds:.1f} s)", flush=True)
+
+    lines, seconds = run_spans()
+    for line in lines:
+        print(f"phase 8 {line} on {card}")
+    print(f"phase 8 spans: the pipelined write and read under torch.profiler, in a subprocess "
+          f"({seconds:.1f} s)", flush=True)
 
     _require("jax" not in sys.modules, "jax was imported")
     _require(not any(m == "dbde_tpu" or m.startswith("dbde_tpu.") for m in sys.modules),

@@ -44,6 +44,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import trace
 from .format import FrameHeader, packed_image_size, tile_grid
 from .ops import band, tile_layout
 from .ops.bitpack import MAX_WORDS_PER_TILE
@@ -52,6 +53,28 @@ BACKENDS = ("band", "tiles")
 
 
 _NP_DTYPES = {torch.uint8: np.uint8, torch.int32: np.int32, torch.uint32: np.uint32}
+
+
+def _host_allocs() -> tuple[int, float]:
+    """(blocks, µs) torch's pinned-memory cache has allocated from CUDA so
+    far (0, 0 where the installed torch does not say)."""
+    stats = torch.cuda.host_memory_stats()
+    return stats.get("num_host_alloc", 0), stats.get("host_alloc_time.total", 0)
+
+
+def _pinned(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialised CPU tensor in pinned memory from torch's
+    pinned-memory cache.  While a profiler records, what the cache had to
+    allocate from CUDA for it is counted: ``pinned.allocs`` blocks,
+    ``pinned.alloc_us`` µs (:mod:`.trace`)."""
+    if not trace.enabled():
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+    blocks, us = _host_allocs()
+    out = torch.empty(shape, dtype=dtype, pin_memory=True)
+    blocks_after, us_after = _host_allocs()
+    trace.count("pinned.allocs", blocks_after - blocks)
+    trace.count("pinned.alloc_us", us_after - us)
+    return out
 
 
 class HostCopy:
@@ -79,14 +102,16 @@ class HostCopy:
         with torch.cuda.stream(stream):
             for i, t in enumerate(tensors):
                 t.record_stream(stream)  # the allocator must not reuse it before the copy
-                self.host[i] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self.host[i] = _pinned(t.shape, t.dtype)
                 self.host[i].copy_(t, non_blocking=True)
         self.event = torch.cuda.Event()
         self.event.record(stream)
+        trace.count("copy.d2h_bytes", sum(h.nbytes for h in self.host))
 
     def wait(self) -> list[np.ndarray]:
         if self.event is not None:
-            self.event.synchronize()
+            with trace.span("copy.wait"):  # the host blocked on the card
+                self.event.synchronize()
         return [h.numpy() for h in self.host]
 
     def keep(self) -> list[np.ndarray]:
@@ -94,7 +119,8 @@ class HostCopy:
         arrays = self.wait()
         if self.event is None:
             return arrays
-        return [torch.empty(h.shape, dtype=h.dtype).copy_(h).numpy() for h in self.host]
+        with trace.span("copy.keep"):
+            return [torch.empty(h.shape, dtype=h.dtype).copy_(h).numpy() for h in self.host]
 
 
 def record_event(device: torch.device):
@@ -232,6 +258,7 @@ class DbdeCodec:
         # the CUDA path's stream for copies back that must not queue behind
         # later work on the compute stream (the writer's drain)
         self._d2h = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        trace.count("codec.instances", 1)
 
     def stage(self, a, dtype: torch.dtype = torch.uint8) -> torch.Tensor:
         """Host data → a CPU tensor for this codec's copies: on a CUDA codec
@@ -239,12 +266,14 @@ class DbdeCodec:
         hands it out again only after the copies that read it have
         completed, so the caller may reuse ``a`` at once; on a CPU codec
         ``a`` itself (its calls finish before they return)."""
-        src = _host_tensor(a, dtype)
-        if self.device.type == "cpu":
-            return src
-        staged = torch.empty(src.shape, dtype=dtype, pin_memory=True)
-        np.copyto(staged.numpy(), src.numpy())  # one memcpy, like a pageable cudaMemcpy's
-        return staged
+        with trace.span("codec.stage"):
+            src = _host_tensor(a, dtype)
+            if self.device.type == "cpu":
+                return src
+            staged = _pinned(src.shape, dtype)
+            np.copyto(staged.numpy(), src.numpy())  # one memcpy, like a pageable cudaMemcpy's
+            trace.count("codec.staged_bytes", staged.nbytes)
+            return staged
 
     def host_empty(self, shape, dtype) -> np.ndarray:
         """An uninitialised host array for data bound for this codec: in
@@ -252,7 +281,7 @@ class DbdeCodec:
         if self.device.type == "cpu":
             return np.empty(shape, dtype)
         torch_dtype = {v: k for k, v in _NP_DTYPES.items()}[np.dtype(dtype).type]
-        return torch.empty(shape, dtype=torch_dtype, pin_memory=True).numpy()
+        return _pinned(shape, torch_dtype).numpy()
 
     def _put(self, *items) -> list[torch.Tensor]:
         """(array or tensor, dtype) pairs → contiguous tensors of those
@@ -267,19 +296,20 @@ class DbdeCodec:
         for the device.  The caller keeps memory of its own that is pinned
         unchanged until the batch's output is materialized (the reader's
         release gate)."""
-        out = []
-        for a, dtype in items:
-            if isinstance(a, torch.Tensor) and a.device.type != "cpu":
-                out.append(a.to(device=self.device, dtype=dtype).contiguous())
-                continue
-            src = _host_tensor(a, dtype)
-            if self.device.type == "cuda":
-                if not src.is_pinned():
-                    src = self.stage(src, dtype)
-                src = torch.empty(src.shape, dtype=dtype, device=self.device).copy_(
-                    src, non_blocking=True)
-            out.append(src)
-        return out
+        with trace.span("codec.put"):
+            out = []
+            for a, dtype in items:
+                if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+                    out.append(a.to(device=self.device, dtype=dtype).contiguous())
+                    continue
+                src = _host_tensor(a, dtype)
+                if self.device.type == "cuda":
+                    if not src.is_pinned():
+                        src = self.stage(src, dtype)
+                    src = torch.empty(src.shape, dtype=dtype, device=self.device).copy_(
+                        src, non_blocking=True)
+                out.append(src)
+            return out
 
     def copy_to_host(self, tensors, after=None) -> HostCopy:
         """Copy device tensors back on the codec's device-to-host stream,
@@ -307,20 +337,21 @@ class DbdeCodec:
         (:meth:`stage` makes such a copy).  ``defer_verify`` is accepted
         for the JAX codec's contract and has no effect: this codec runs no
         speculative variant, so the payload is always valid as returned."""
-        x, _ = self._frames(images)
-        if self.backend == "tiles":
-            T = self.tiles
-            d, m, payload, n64 = tile_layout.encode_tiles(tile_layout.image_to_tiles_w(x), T)
-            return EncodedBatch(depths=d[:, :T].contiguous(), mins=m[:, :T].contiguous(),
-                                payload=payload, n64=n64, event=record_event(self.device))
-        mixed = torch.empty((1,), dtype=torch.int32, device=self.device)
-        depths, mins = band.encode_depths(x, mixed)
-        # K2, then K4 (static layout: tile t at word 16*t), into the same
-        # payload and n64: the flag lets exactly one of them write
-        payload, n64 = band.encode_payload(x, depths, mins, mixed=mixed)
-        band.encode_payload_u8(x, mins, out=payload, n64=n64, mixed=mixed)
-        return EncodedBatch(depths=depths, mins=mins, payload=payload, n64=n64,
-                            event=record_event(self.device))
+        with trace.span("codec.encode"):
+            x, _ = self._frames(images)
+            if self.backend == "tiles":
+                T = self.tiles
+                d, m, payload, n64 = tile_layout.encode_tiles(tile_layout.image_to_tiles_w(x), T)
+                return EncodedBatch(depths=d[:, :T].contiguous(), mins=m[:, :T].contiguous(),
+                                    payload=payload, n64=n64, event=record_event(self.device))
+            mixed = torch.empty((1,), dtype=torch.int32, device=self.device)
+            depths, mins = band.encode_depths(x, mixed)
+            # K2, then K4 (static layout: tile t at word 16*t), into the same
+            # payload and n64: the flag lets exactly one of them write
+            payload, n64 = band.encode_payload(x, depths, mins, mixed=mixed)
+            band.encode_payload_u8(x, mins, out=payload, n64=n64, mixed=mixed)
+            return EncodedBatch(depths=depths, mins=mins, payload=payload, n64=n64,
+                                event=record_event(self.device))
 
     def encode_general(self, images) -> EncodedBatch:
         """Same as :meth:`encode` (there is no specialised variant to bypass)."""
@@ -334,22 +365,23 @@ class DbdeCodec:
         choose on the device (both kernels launched, gated by the batch's
         flag) where S ≥ 16*T, else take K3.  Host arrays must stay
         unchanged until :meth:`materialize` of the result returns."""
-        H, W = self.height, self.width
-        on_device = isinstance(depths, torch.Tensor) and depths.device.type != "cpu"
-        if self.backend == "band" and not on_device:
-            uniform, items = self._band_inputs(depths, mins, payload)
-            return self._band_kernels(uniform, self._put(*items))
-        d, m, p = self._put((depths, torch.uint8), (mins, torch.uint8), (payload, torch.uint32))
-        if self.backend == "tiles":
-            tp = tile_layout.pad_tiles(self.tiles)
-            tw = tile_layout.decode_tiles(tile_layout.pad_last(d, tp),
-                                          tile_layout.pad_last(m, tp), p)
-            return tile_layout.tiles_w_to_image(tw, H, W)
-        if p.shape[1] < self.max_payload_words:
-            return band.decode_frames(d, m, p, H, W)
-        mixed = band.mixed_flag(d)
-        out = band.decode_frames(d, m, p, H, W, mixed=mixed)
-        return band.decode_frames_u8(m, p, H, W, out=out, mixed=mixed)
+        with trace.span("codec.decode_dispatch"):
+            H, W = self.height, self.width
+            on_device = isinstance(depths, torch.Tensor) and depths.device.type != "cpu"
+            if self.backend == "band" and not on_device:
+                uniform, items = self._band_inputs(depths, mins, payload)
+                return self._band_kernels(uniform, self._put(*items))
+            d, m, p = self._put((depths, torch.uint8), (mins, torch.uint8), (payload, torch.uint32))
+            if self.backend == "tiles":
+                tp = tile_layout.pad_tiles(self.tiles)
+                tw = tile_layout.decode_tiles(tile_layout.pad_last(d, tp),
+                                              tile_layout.pad_last(m, tp), p)
+                return tile_layout.tiles_w_to_image(tw, H, W)
+            if p.shape[1] < self.max_payload_words:
+                return band.decode_frames(d, m, p, H, W)
+            mixed = band.mixed_flag(d)
+            out = band.decode_frames(d, m, p, H, W, mixed=mixed)
+            return band.decode_frames_u8(m, p, H, W, out=out, mixed=mixed)
 
     def _band_inputs(self, depths, mins, payload) -> tuple[bool, list]:
         """The band decode from host depths: (whether every tile is depth 8,
@@ -409,27 +441,28 @@ def record_iovecs(depths, mins, payload, n64, indices=None, elapsed_ns=None) -> 
     The array rows are zero-copy views into the caller's host arrays; they
     must stay unmodified until the write consumes them.
     """
-    depths = np.ascontiguousarray(depths, np.uint8)
-    mins = np.ascontiguousarray(mins, np.uint8)
-    payload = np.ascontiguousarray(payload, np.uint32)
-    n64 = np.asarray(n64)
-    B, T = depths.shape
-    count = struct.pack("<i", T)
-    iov = []
-    for b in range(B):
-        idx = int(indices[b]) if indices is not None else b
-        ns = int(elapsed_ns[b]) if elapsed_ns is not None else 0
-        n = int(n64[b])
-        iov += [
-            FrameHeader(index=idx, elapsed_ns=ns).pack(),
-            count,
-            depths[b].data,
-            count,
-            mins[b].data,
-            struct.pack("<i", n),
-            payload[b, : 2 * n].data,
-        ]
-    return iov
+    with trace.span("codec.records"):
+        depths = np.ascontiguousarray(depths, np.uint8)
+        mins = np.ascontiguousarray(mins, np.uint8)
+        payload = np.ascontiguousarray(payload, np.uint32)
+        n64 = np.asarray(n64)
+        B, T = depths.shape
+        count = struct.pack("<i", T)
+        iov = []
+        for b in range(B):
+            idx = int(indices[b]) if indices is not None else b
+            ns = int(elapsed_ns[b]) if elapsed_ns is not None else 0
+            n = int(n64[b])
+            iov += [
+                FrameHeader(index=idx, elapsed_ns=ns).pack(),
+                count,
+                depths[b].data,
+                count,
+                mins[b].data,
+                struct.pack("<i", n),
+                payload[b, : 2 * n].data,
+            ]
+        return iov
 
 
 def pack_frames_bytes(enc: EncodedBatch, indices=None, elapsed_ns=None) -> list[bytes]:

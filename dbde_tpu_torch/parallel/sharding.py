@@ -47,6 +47,7 @@ import collections
 import numpy as np
 import torch
 
+from .. import trace
 from ..codec import DbdeCodec, HostCopy, _host, record_event, record_iovecs, resolve_device
 from ..format import VideoHeader, tile_grid
 from ..ops.bitpack import MAX_WORDS_PER_TILE
@@ -176,14 +177,16 @@ def _encode_shards(images: np.ndarray, mesh: Mesh):
     H is edge-padded first to whole tile rows (the format's rule: repeat
     the last row), so shard (d, t) holds frames ``[d*B_loc, (d+1)*B_loc)``
     and pixel rows ``[t*8*h_loc, (t+1)*8*h_loc)`` of the padded frames."""
-    B, H, W = images.shape
-    n_data, n_tiles = mesh.devices.shape
-    h, _, h_loc = _band_geometry(W, H, n_tiles)
-    B_loc = _local_batch(B, n_data)
-    images = _pad_rows(images, 8 * h)
-    L = 8 * h_loc
-    return [[(codec, codec.encode(_band(images, d, t, B_loc, L))) for t, codec in enumerate(row)]
-            for d, row in enumerate(_shard_codecs(mesh, L, W))]
+    with trace.span("sharded.encode"):
+        B, H, W = images.shape
+        n_data, n_tiles = mesh.devices.shape
+        h, _, h_loc = _band_geometry(W, H, n_tiles)
+        B_loc = _local_batch(B, n_data)
+        images = _pad_rows(images, 8 * h)
+        L = 8 * h_loc
+        return [[(codec, codec.encode(_band(images, d, t, B_loc, L)))
+                 for t, codec in enumerate(row)]
+                for d, row in enumerate(_shard_codecs(mesh, L, W))]
 
 
 def _totals_bases(row) -> tuple[torch.Tensor, torch.Tensor]:
@@ -228,32 +231,34 @@ def encode_sharded(images, mesh: Mesh, backend: str = "auto"):
 def _copy_totals(grid) -> tuple[np.ndarray, np.ndarray]:
     """The first round: every data row's (totals, bases), each (n_tiles, B)
     i32 on the host."""
-    sums = [copy.wait() for copy in [HostCopy(_totals_bases(row)) for row in grid]]
-    return (np.concatenate([t for t, _ in sums], axis=1),
-            np.concatenate([b for _, b in sums], axis=1))
+    with trace.span("sharded.totals"):
+        sums = [copy.wait() for copy in [HostCopy(_totals_bases(row)) for row in grid]]
+        return (np.concatenate([t for t, _ in sums], axis=1),
+                np.concatenate([b for _, b in sums], axis=1))
 
 
 def _copy_fields(grid, totals: np.ndarray, B: int, H: int, W: int):
     """The second round: (depths (B, T) u8, mins (B, T) u8, payload (B,
     n_tiles*S_local) u32 segments), each shard's payload copied up to its
     largest total."""
-    n_data, n_tiles = len(grid), len(grid[0])
-    _, w, h_loc = _band_geometry(W, H, n_tiles)
-    B_loc, T_loc = B // n_data, h_loc * w
-    copies = []
-    for d, row in enumerate(grid):
-        for t, (_, enc) in enumerate(row):
-            live = int(totals[t, d * B_loc:(d + 1) * B_loc].max(initial=0))
-            copies.append(HostCopy([enc.depths, enc.mins, enc.payload[:, :live]]))
-    depths = np.empty((B, n_tiles * T_loc), np.uint8)
-    mins = np.empty((B, n_tiles * T_loc), np.uint8)
-    payload = np.empty((B, n_tiles, segment_slot_words(W, H, n_tiles)), np.uint32)
-    for i, copy in enumerate(copies):
-        d, t = divmod(i, n_tiles)
-        frames, tiles = slice(d * B_loc, (d + 1) * B_loc), slice(t * T_loc, (t + 1) * T_loc)
-        depths[frames, tiles], mins[frames, tiles], live = copy.wait()
-        payload[frames, t, :live.shape[1]] = live
-    return depths, mins, payload.reshape(B, -1)
+    with trace.span("sharded.fields"):
+        n_data, n_tiles = len(grid), len(grid[0])
+        _, w, h_loc = _band_geometry(W, H, n_tiles)
+        B_loc, T_loc = B // n_data, h_loc * w
+        copies = []
+        for d, row in enumerate(grid):
+            for t, (_, enc) in enumerate(row):
+                live = int(totals[t, d * B_loc:(d + 1) * B_loc].max(initial=0))
+                copies.append(HostCopy([enc.depths, enc.mins, enc.payload[:, :live]]))
+        depths = np.empty((B, n_tiles * T_loc), np.uint8)
+        mins = np.empty((B, n_tiles * T_loc), np.uint8)
+        payload = np.empty((B, n_tiles, segment_slot_words(W, H, n_tiles)), np.uint32)
+        for i, copy in enumerate(copies):
+            d, t = divmod(i, n_tiles)
+            frames, tiles = slice(d * B_loc, (d + 1) * B_loc), slice(t * T_loc, (t + 1) * T_loc)
+            depths[frames, tiles], mins[frames, tiles], live = copy.wait()
+            payload[frames, t, :live.shape[1]] = live
+        return depths, mins, payload.reshape(B, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -425,22 +430,23 @@ def split_payload_host(payload, depths, H: int, W: int, n_tiles: int,
     ``out``: an optional reusable (B, n_tiles*S_local) u32 buffer
     (:func:`iter_video_sharded` pools them).
     """
-    depths = np.asarray(depths)
-    payload = np.asarray(payload)
-    B, T = depths.shape
-    _, w, h_loc = _band_geometry(W, H, n_tiles)
-    counts = 2 * depths.reshape(B, n_tiles, h_loc * w).astype(np.int64).sum(-1)
-    bases = np.cumsum(counts, axis=1) - counts
-    S_local = segment_slot_words(W, H, n_tiles, backend)
-    if out is None or out.shape != (B, n_tiles * S_local):
-        out = np.empty((B, n_tiles * S_local), np.uint32)
-    segs = out.reshape(B, n_tiles, S_local)
-    for b in range(B):
-        src = payload[b]
-        for s in range(n_tiles):
-            c = counts[b, s]
-            segs[b, s, :c] = src[bases[b, s] : bases[b, s] + c]
-    return out
+    with trace.span("sharded.split"):
+        depths = np.asarray(depths)
+        payload = np.asarray(payload)
+        B, T = depths.shape
+        _, w, h_loc = _band_geometry(W, H, n_tiles)
+        counts = 2 * depths.reshape(B, n_tiles, h_loc * w).astype(np.int64).sum(-1)
+        bases = np.cumsum(counts, axis=1) - counts
+        S_local = segment_slot_words(W, H, n_tiles, backend)
+        if out is None or out.shape != (B, n_tiles * S_local):
+            out = np.empty((B, n_tiles * S_local), np.uint32)
+        segs = out.reshape(B, n_tiles, S_local)
+        for b in range(B):
+            src = payload[b]
+            for s in range(n_tiles):
+                c = counts[b, s]
+                segs[b, s, :c] = src[bases[b, s] : bases[b, s] + c]
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -458,10 +464,11 @@ def _assemble(payload, totals, buf):
     (matrix, n64, the buffer for the next batch).  The buffer is reused
     across batches: ``os.writev`` is synchronous, so it is free the moment
     ``_writev_all`` returns."""
-    pay, n64 = assemble_payload_padded(payload, totals, out=buf)
-    if buf is None or pay.shape[1] > buf.shape[1]:
-        buf = pay if pay.base is None else None
-    return pay, n64, buf
+    with trace.span("sharded.assemble"):
+        pay, n64 = assemble_payload_padded(payload, totals, out=buf)
+        if buf is None or pay.shape[1] > buf.shape[1]:
+            buf = pay if pay.base is None else None
+        return pay, n64, buf
 
 
 def write_video_sharded(path, frames, mesh: Mesh, frame_hz: float = 1.0,
@@ -476,22 +483,23 @@ def write_video_sharded(path, frames, mesh: Mesh, frame_hz: float = 1.0,
     axis is padded with repeats of its last frame, which are dropped at
     the file.
     """
-    frames = np.asarray(frames, dtype=np.uint8)
-    N, H, W = frames.shape
-    n_data = mesh.shape["data"]
-    step = _write_step(batch_size, n_data)
-    pay_buf = None
-    with open(path, "wb") as f:
-        f.write(VideoHeader(height=H, width=W, frame_hz=frame_hz).pack(hz_as_integer))
-        f.flush()  # the records below bypass the buffer via writev on the fd
-        for i in range(0, N, step):
-            batch = frames[i : i + step]
-            n = batch.shape[0]
-            depth, mn, payload, totals, _, _ = encode_sharded(_pad_data(batch, n_data), mesh,
-                                                              backend=backend)
-            pay, n64, pay_buf = _assemble(payload, totals, pay_buf)
-            iov = record_iovecs(depth[:n], mn[:n], pay[:n], n64[:n], indices=range(i, i + n))
-            _writev_all(f.fileno(), iov)
+    with trace.span("sharded.write"):
+        frames = np.asarray(frames, dtype=np.uint8)
+        N, H, W = frames.shape
+        n_data = mesh.shape["data"]
+        step = _write_step(batch_size, n_data)
+        pay_buf = None
+        with open(path, "wb") as f:
+            f.write(VideoHeader(height=H, width=W, frame_hz=frame_hz).pack(hz_as_integer))
+            f.flush()  # the records below bypass the buffer via writev on the fd
+            for i in range(0, N, step):
+                batch = frames[i : i + step]
+                n = batch.shape[0]
+                depth, mn, payload, totals, _, _ = encode_sharded(_pad_data(batch, n_data), mesh,
+                                                                  backend=backend)
+                pay, n64, pay_buf = _assemble(payload, totals, pay_buf)
+                iov = record_iovecs(depth[:n], mn[:n], pay[:n], n64[:n], indices=range(i, i + n))
+                _writev_all(f.fileno(), iov)
 
 
 def _pad_records(depths, mins, payload, n_data: int):
@@ -538,26 +546,28 @@ def iter_video_sharded(path, mesh: Mesh, backend: str = "auto",
         seg_pool: dict = {}  # batch rows → free segment buffers
 
         def dispatch() -> bool:
-            item = next(raw, None)
-            if item is None:
-                return False
-            headers, arrays = item
-            depths, mins, payload = _pad_records(*arrays[:3], n_data)
-            free = seg_pool.setdefault(depths.shape[0], [])
-            segments = split_payload_host(payload, depths, H, W, n_tiles, backend,
-                                          out=free.pop() if free else None)
-            out = decode_sharded_dispatch(depths, mins, segments, mesh, H=H, W=W, Hp=Hp,
-                                          backend=backend, uniform8=uniform8)
-            pending.append((headers, out, segments))
-            return True
+            with trace.span("sharded.dispatch"):
+                item = next(raw, None)
+                if item is None:
+                    return False
+                headers, arrays = item
+                depths, mins, payload = _pad_records(*arrays[:3], n_data)
+                free = seg_pool.setdefault(depths.shape[0], [])
+                segments = split_payload_host(payload, depths, H, W, n_tiles, backend,
+                                              out=free.pop() if free else None)
+                out = decode_sharded_dispatch(depths, mins, segments, mesh, H=H, W=W, Hp=Hp,
+                                              backend=backend, uniform8=uniform8)
+                pending.append((headers, out, segments))
+                return True
 
         while len(pending) < pipeline and dispatch():
             pass
         while pending:
             dispatch()  # parse + split + launch the next batch while this one runs
             headers, out, segments = pending.popleft()
-            frames = decode_sharded_materialize(out, H, W)[:len(headers)]
-            seg_pool[segments.shape[0]].append(segments)  # decoded ⇒ copies done
+            with trace.span("sharded.materialize"):
+                frames = decode_sharded_materialize(out, H, W)[:len(headers)]
+                seg_pool[segments.shape[0]].append(segments)  # decoded ⇒ copies done
             yield headers, frames
 
 

@@ -49,6 +49,7 @@ from typing import Iterator
 
 import numpy as np
 
+from . import trace
 from .codec import DbdeCodec, HostCopy, record_event, record_iovecs, unpack_frames_bytes
 from .format import (
     FRAME_HEADER_BYTES,
@@ -127,19 +128,21 @@ def _writev_all(fd: int, iov: list) -> int:
     """``os.writev`` a whole buffer list (in chunks of IOV_MAX, resuming
     partial writes).  The kernel's gather copy into the page cache is the
     only pass over the bytes: no host-side assembly buffer."""
-    views = [memoryview(b).cast("B") for b in iov]
-    total = 0
-    i = 0
-    while i < len(views):
-        n = os.writev(fd, views[i : i + _IOV_MAX])
-        if n <= 0 and any(v.nbytes for v in views[i : i + _IOV_MAX]):
-            raise OSError("writev wrote 0 bytes")
-        total += n
-        while i < len(views) and n >= views[i].nbytes:
-            n -= views[i].nbytes
-            i += 1
-        if i < len(views) and n:
-            views[i] = views[i][n:]
+    with trace.span("stream.writev"):
+        views = [memoryview(b).cast("B") for b in iov]
+        total = 0
+        i = 0
+        while i < len(views):
+            n = os.writev(fd, views[i : i + _IOV_MAX])
+            if n <= 0 and any(v.nbytes for v in views[i : i + _IOV_MAX]):
+                raise OSError("writev wrote 0 bytes")
+            total += n
+            while i < len(views) and n >= views[i].nbytes:
+                n -= views[i].nbytes
+                i += 1
+            if i < len(views) and n:
+                views[i] = views[i][n:]
+    trace.count("stream.writev_bytes", total)
     return total
 
 
@@ -284,56 +287,57 @@ class DbdeReader:
         element, ``release``, a zero-argument callable that returns the
         slot.
         """
-        if self._pos > 0 and self._mm is None:
-            # compact between batches; the mmap path keeps absolute offsets
-            del self._buf[: self._pos]
-            self._pos = 0
-        headers, offsets, max_n64 = [], [], 0
-        if self._native is not None and self._mm is not None:
-            # the map is the whole file, so a short scan is the end (or a
-            # corrupt record): no refill to try
-            offs, sizes = self._native.scan_records(
-                self._buf, self._pos, self.tiles, self.batch_size)
-            for off, size in zip(offs, sizes):
-                fh, _ = unpack_frame_header(self._buf, off)
-                headers.append(fh)
-                offsets.append(off + FRAME_HEADER_BYTES)
-                max_n64 = max(max_n64, (size - FRAME_HEADER_BYTES - 12 - 2 * self.tiles) // 8)
-                self._pos = off + size
-        else:
-            while len(headers) < self.batch_size:
-                rec = self._next_record()
-                if rec is None:
-                    break
-                fh, off, size = rec
-                headers.append(fh)
-                offsets.append(off + FRAME_HEADER_BYTES)
-                max_n64 = max(max_n64, (size - FRAME_HEADER_BYTES - 12 - 2 * self.tiles) // 8)
-        if not headers:
-            return None
-        # payload stride: the live words rounded up to 65536, so the
-        # host→device copy stays near the encoded size
-        stride = min(16 * self.tiles, -(-2 * max_n64 // 65536) * 65536 or 2)
-        if pool is not None and self._native is not None:
-            B = len(headers)
-            key = (B, self.tiles, stride)
-            slot = pool.acquire(key)
-            if slot is None:
-                empty = self._codec.host_empty
-                slot = (empty((B, self.tiles), np.uint8), empty((B, self.tiles), np.uint8),
-                        empty((B, stride), np.uint32), empty((B,), np.int32))
-            arrays = self._native.gather_fields(self._buf, offsets, self.tiles,
-                                                stride, out=slot)
-            return headers, arrays, lambda: pool.release(key, slot)
-        if self._native is not None:
-            arrays = self._native.gather_fields(self._buf, offsets, self.tiles, stride,
-                                                scratch=self._gather_scratch)
-        else:
-            buf = self._buf if self._mm is not None else bytes(self._buf)
-            arrays = unpack_frames_bytes(buf, self.width, self.height, offsets, stride)
-        if pool is not None:
-            return headers, arrays, lambda: None  # fresh arrays: nothing to gate
-        return headers, arrays
+        with trace.span("reader.parse"):
+            if self._pos > 0 and self._mm is None:
+                # compact between batches; the mmap path keeps absolute offsets
+                del self._buf[: self._pos]
+                self._pos = 0
+            headers, offsets, max_n64 = [], [], 0
+            if self._native is not None and self._mm is not None:
+                # the map is the whole file, so a short scan is the end (or a
+                # corrupt record): no refill to try
+                offs, sizes = self._native.scan_records(
+                    self._buf, self._pos, self.tiles, self.batch_size)
+                for off, size in zip(offs, sizes):
+                    fh, _ = unpack_frame_header(self._buf, off)
+                    headers.append(fh)
+                    offsets.append(off + FRAME_HEADER_BYTES)
+                    max_n64 = max(max_n64, (size - FRAME_HEADER_BYTES - 12 - 2 * self.tiles) // 8)
+                    self._pos = off + size
+            else:
+                while len(headers) < self.batch_size:
+                    rec = self._next_record()
+                    if rec is None:
+                        break
+                    fh, off, size = rec
+                    headers.append(fh)
+                    offsets.append(off + FRAME_HEADER_BYTES)
+                    max_n64 = max(max_n64, (size - FRAME_HEADER_BYTES - 12 - 2 * self.tiles) // 8)
+            if not headers:
+                return None
+            # payload stride: the live words rounded up to 65536, so the
+            # host→device copy stays near the encoded size
+            stride = min(16 * self.tiles, -(-2 * max_n64 // 65536) * 65536 or 2)
+            if pool is not None and self._native is not None:
+                B = len(headers)
+                key = (B, self.tiles, stride)
+                slot = pool.acquire(key)
+                if slot is None:
+                    empty = self._codec.host_empty
+                    slot = (empty((B, self.tiles), np.uint8), empty((B, self.tiles), np.uint8),
+                            empty((B, stride), np.uint32), empty((B,), np.int32))
+                arrays = self._native.gather_fields(self._buf, offsets, self.tiles,
+                                                    stride, out=slot)
+                return headers, arrays, lambda: pool.release(key, slot)
+            if self._native is not None:
+                arrays = self._native.gather_fields(self._buf, offsets, self.tiles, stride,
+                                                    scratch=self._gather_scratch)
+            else:
+                buf = self._buf if self._mm is not None else bytes(self._buf)
+                arrays = unpack_frames_bytes(buf, self.width, self.height, offsets, stride)
+            if pool is not None:
+                return headers, arrays, lambda: None  # fresh arrays: nothing to gate
+            return headers, arrays
 
     # -- iteration -----------------------------------------------------------
 
@@ -342,13 +346,14 @@ class DbdeReader:
         pool = _GatedPool()
 
         def dispatch() -> bool:
-            batch = self._read_batch_arrays(pool=pool)
-            if batch is None:
-                return False
-            headers, (depths, mins, payload, _), release = batch
-            frames = self._codec.decode_dispatch(depths, mins, payload)
-            pending.append((headers, frames, record_event(self._codec.device), release))
-            return True
+            with trace.span("reader.dispatch"):
+                batch = self._read_batch_arrays(pool=pool)
+                if batch is None:
+                    return False
+                headers, (depths, mins, payload, _), release = batch
+                frames = self._codec.decode_dispatch(depths, mins, payload)
+                pending.append((headers, frames, record_event(self._codec.device), release))
+                return True
 
         while len(pending) < self.pipeline and dispatch():
             pass
@@ -358,8 +363,9 @@ class DbdeReader:
             self.frames_read += len(headers)
             # after the dispatch's event, on the stream current now: the
             # caller may have switched streams since
-            out = self._codec.materialize(frames, after=done)
-            release()  # decode output copied back ⇒ the slot's copies are done
+            with trace.span("reader.materialize"):
+                out = self._codec.materialize(frames, after=done)
+                release()  # decode output copied back ⇒ the slot's copies are done
             yield headers, out
 
     def iter_raw(self):
@@ -449,46 +455,50 @@ class DbdeWriter:
         """Queue a (B, H, W) or (H, W) u8 batch for encoding.  The frames are
         copied before this returns, so the caller may reuse its array at
         once."""
-        frames = np.asarray(frames, dtype=np.uint8)
-        if frames.ndim == 2:
-            frames = frames[None]
-        B = frames.shape[0]
-        if indices is None:
-            indices = range(self.frames_written, self.frames_written + B)
-        indices = [int(i) for i in indices]
-        ns = [int(x) for x in elapsed_ns] if elapsed_ns is not None else [0] * B
-        self.frames_written += B
-        enc = self._codec.encode(self._codec.stage(frames), defer_verify=True)
-        fields = HostCopy([enc.n64, enc.depths, enc.mins])  # after the encode, on its stream
-        self._pending.append((enc, fields, indices, ns))
-        while len(self._pending) > self.pipeline:
-            self._drain_one()
+        with trace.span("writer.write"):
+            frames = np.asarray(frames, dtype=np.uint8)
+            if frames.ndim == 2:
+                frames = frames[None]
+            B = frames.shape[0]
+            if indices is None:
+                indices = range(self.frames_written, self.frames_written + B)
+            indices = [int(i) for i in indices]
+            ns = [int(x) for x in elapsed_ns] if elapsed_ns is not None else [0] * B
+            self.frames_written += B
+            enc = self._codec.encode(self._codec.stage(frames), defer_verify=True)
+            fields = HostCopy([enc.n64, enc.depths, enc.mins])  # after the encode, on its stream
+            self._pending.append((enc, fields, indices, ns))
+            while len(self._pending) > self.pipeline:
+                self._drain_one()
 
     def _drain_one(self) -> None:
-        enc, fields, indices, ns = self._pending.popleft()
-        n64, depths, mins = fields.wait()  # this batch's encode and copies, nothing later
-        live = 2 * int(n64.max()) if len(n64) else 0
-        (payload,) = self._codec.copy_to_host([enc.payload[:, :live]], after=fields.event).wait()
-        if self._fd is None and self._native is None:
-            self._f.write(b"".join(record_iovecs(depths, mins, payload, n64, indices, ns)))
-        elif self._fd is not None:
-            # vectored write straight from the host arrays (see record_iovecs)
-            iov = record_iovecs(depths, mins, payload, n64, indices, ns)
-            self._f.flush()
-            _writev_all(self._fd, iov)
-        else:
-            # zero-copy view over the writer's reused scratch buffer,
-            # written out before the next _drain_one touches it
-            self._f.write(self._native.assemble_records(
-                depths, mins, payload, n64, indices=indices, elapsed_ns=ns,
-                scratch=self._asm_scratch))
+        with trace.span("writer.drain"):
+            enc, fields, indices, ns = self._pending.popleft()
+            n64, depths, mins = fields.wait()  # this batch's encode and copies, nothing later
+            live = 2 * int(n64.max()) if len(n64) else 0
+            (payload,) = self._codec.copy_to_host([enc.payload[:, :live]],
+                                                  after=fields.event).wait()
+            if self._fd is None and self._native is None:
+                self._f.write(b"".join(record_iovecs(depths, mins, payload, n64, indices, ns)))
+            elif self._fd is not None:
+                # vectored write straight from the host arrays (see record_iovecs)
+                iov = record_iovecs(depths, mins, payload, n64, indices, ns)
+                self._f.flush()
+                _writev_all(self._fd, iov)
+            else:
+                # zero-copy view over the writer's reused scratch buffer,
+                # written out before the next _drain_one touches it
+                self._f.write(self._native.assemble_records(
+                    depths, mins, payload, n64, indices=indices, elapsed_ns=ns,
+                    scratch=self._asm_scratch))
 
     def close(self) -> None:
-        while self._pending:
-            self._drain_one()
-        if self._own_file and self._f is not None:
-            self._f.close()
-        self._f = None
+        with trace.span("writer.close"):
+            while self._pending:
+                self._drain_one()
+            if self._own_file and self._f is not None:
+                self._f.close()
+            self._f = None
 
     def __enter__(self):
         return self

@@ -11,16 +11,20 @@ several: it synchronizes each of them, and its events cover each.
 
 Every function that measures or reads a trace raises when no CUDA device is
 visible; none returns None for a caller to fall back on.  The interval
-arithmetic (:func:`idle_share`, :func:`card_shares`) works on any intervals.
+arithmetic (:func:`idle_share`, :func:`card_shares`) works on any intervals,
+and :func:`idle_by_span` on any events.
 """
 
 from __future__ import annotations
 
+import bisect
 import subprocess
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+
+from ..trace import PREFIX
 
 
 def _require_cuda() -> None:
@@ -79,13 +83,22 @@ def cuda_event_seconds(fn, reps: int, warmup: int = 3, cards=None) -> float:
     return start.elapsed_time(end) / reps / 1e3
 
 
+def _activities(events) -> list[tuple[int, str, float, float]]:
+    """(card index, name, start µs, end µs) of the device activities among
+    profiler events.  The profiler mirrors each host ``record_function``
+    span, the program's own (:mod:`..trace`) among them, onto the device's
+    timeline as a user annotation: those are no activity, and go."""
+    return [(e.device_index, e.name, e.time_range.start, e.time_range.end)
+            for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and not e.name.startswith(PREFIX)]
+
+
 def device_intervals(prof) -> list[tuple[int, str, float, float]]:
     """(card index, name, start µs, end µs) of every device activity
-    ``prof`` (a finished ``torch.profiler.profile``) saw.  The profiler puts
-    every card's activity on one clock."""
+    ``prof`` (a finished ``torch.profiler.profile``) saw: kernels, copies
+    and memsets.  The profiler puts every card's activity on one clock."""
     _require_cuda()
-    return [(e.device_index, e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return _activities(prof.events())
 
 
 def idle_share(intervals) -> tuple[float, float, float]:
@@ -116,6 +129,68 @@ def card_shares(intervals) -> tuple[dict[int, tuple[float, float, float]], float
         by_card.setdefault(iv[0], []).append(iv)
     span = max(iv[3] for iv in intervals) - min(iv[2] for iv in intervals)
     return {card: idle_share(ivs) for card, ivs in sorted(by_card.items())}, span
+
+
+def _innermost(spans) -> list[tuple[float, float, tuple[str, str]]]:
+    """Nested host spans (name, start, end) → (start, end, (root, name))
+    pieces of the timeline in order: ``name`` the innermost span open over
+    the piece, ``root`` the outermost."""
+    # at one instant opens come before closes, so a span of no length
+    # opens before it closes, and the longer of two spans that open
+    # together comes first: it holds the other
+    bounds = sorted([(s, 0, s - e, i) for i, (_, s, e) in enumerate(spans)]
+                    + [(e, 1, 0, i) for i, (_, _, e) in enumerate(spans)])
+    out, stack, cur = [], [], None
+    for t, closing, _, i in bounds:
+        if stack and t > cur:
+            out.append((cur, t, (spans[stack[0]][0], spans[stack[-1]][0])))
+        if closing:
+            stack.remove(i)
+        else:
+            stack.append(i)
+        cur = t
+    return out
+
+
+def idle_by_span(events, cards) -> dict[tuple, float]:
+    """µs in which the cards ran no kernel and no copy, each stretch put
+    under the innermost program span (``dbde:<name>``, :mod:`..trace`)
+    open on the host over it: ``{(root, name): µs}``, keyed as
+    :func:`..trace.totals` is, ``(None, None)`` where no span was open.
+    The mean over ``cards`` (indices) of each card's idle time from the
+    first program span's start to the last one's end, from ``events``, a
+    finished profile's ``events()``."""
+    spans = [(e.name[len(PREFIX):], e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CPU and e.name.startswith(PREFIX)]
+    if not spans or not cards:
+        return {}
+    t0 = min(s for _, s, _ in spans)
+    t1 = max(e for _, _, e in spans)
+    pieces = _innermost(spans)
+    ends = [e for _, e, _ in pieces]
+    activities = _activities(events)
+    out: dict[str, float] = {}
+    for card in cards:
+        busy = sorted((max(s, t0), min(e, t1)) for c, _, s, e in activities
+                      if c == card and e > t0 and s < t1)
+        gaps, cur = [], t0
+        for s, e in busy + [(t1, t1)]:
+            if s > cur:
+                gaps.append((cur, s))
+            cur = max(cur, e)
+        for g0, g1 in gaps:
+            covered = 0.0
+            j = bisect.bisect_right(ends, g0)
+            while j < len(pieces) and pieces[j][0] < g1:
+                s, e, name = pieces[j]
+                overlap = min(e, g1) - max(s, g0)
+                if overlap > 0:
+                    out[name] = out.get(name, 0.0) + overlap / len(cards)
+                    covered += overlap
+                j += 1
+            if g1 - g0 > covered:
+                out[None, None] = out.get((None, None), 0.0) + (g1 - g0 - covered) / len(cards)
+    return out
 
 
 PROFILE_SESSIONS = 3  # profiler sessions a measurement may take

@@ -12,6 +12,7 @@ import torch
 from dbde_tpu import ref_numpy as ref
 from dbde_tpu.parallel import encode_sharded as jax_encode_sharded
 from dbde_tpu.parallel import make_mesh as jax_make_mesh
+from dbde_tpu.parallel import sharding as jax_sharding
 from dbde_tpu_torch import write_video
 from dbde_tpu_torch.bench_core import make_content
 from dbde_tpu_torch.graft_entry import dryrun_multichip
@@ -192,6 +193,32 @@ def test_assemble_payload_padded_matches_ragged():
             expected = np.concatenate([segments[b, s, : totals[s, b]] for s in range(2)])
             assert 2 * int(n64[b]) == expected.size
             np.testing.assert_array_equal(pay[b, : expected.size], expected)
+
+
+@pytest.mark.parametrize("n_tiles", [1, 2])
+def test_glue_legs_match_jax_package(n_tiles):
+    """Each shard's live words from split_payload_host, and the assembled
+    streams, equal the JAX package's (tolerance 0; numpy functions, no
+    compile) on depths with camera statistics and a random payload, as
+    tools/probe_sharded_io.py makes them, 4 tile rows of 5 tiles."""
+    W, H, B = 40, 32, 4
+    rng = np.random.default_rng(0)
+    depths = np.minimum(rng.poisson(2.2, (B, 4 * 5)), 5).astype(np.uint8)
+    words = 2 * depths.astype(np.int64).sum(1)
+    payload = rng.integers(0, 1 << 32, (B, int(words.max())), dtype=np.uint32)
+    counts = 2 * depths.reshape(B, n_tiles, -1).astype(np.int64).sum(-1)
+    ours = split_payload_host(payload, depths, H, W, n_tiles)
+    theirs = jax_sharding.split_payload_host(payload, depths, H, W, n_tiles, backend="band")
+    o, t = ours.reshape(B, n_tiles, -1), theirs.reshape(B, n_tiles, -1)
+    for b in range(B):
+        for s in range(n_tiles):
+            np.testing.assert_array_equal(o[b, s, :counts[b, s]], t[b, s, :counts[b, s]])
+    pay, n64 = assemble_payload_padded(ours, counts.T)
+    jpay, jn64 = jax_sharding.assemble_payload_padded(theirs, counts.T)
+    np.testing.assert_array_equal(n64, jn64)
+    for b in range(B):
+        np.testing.assert_array_equal(pay[b, : 2 * n64[b]], jpay[b, : 2 * jn64[b]])
+        np.testing.assert_array_equal(pay[b, : 2 * n64[b]], payload[b, : 2 * n64[b]])
 
 
 def test_decode_tolerates_garbage_segment_tails():

@@ -157,8 +157,8 @@ with tempfile.TemporaryDirectory() as d:
     golden = os.path.join(d, "g.dbde")
     assert cli.main(["golden", "-o", golden, "--frames", "2"]) == 0
     assert cli.main(["info", golden, "--scan"]) == 0
-from dbde_tpu_torch import probe_sharded
-assert probe_sharded.main(["24x16", "2", "1", "--device", "cpu"]) == 0
+from dbde_tpu_torch import trace
+assert trace.totals() == {}
 assert (out == frames).all()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "dbde_tpu"))
@@ -206,10 +206,18 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert set(launches.values()) == {0}
     times = smoke.time_pipelines(cpu, frames, 2, digest, depths=(2, 1))
     assert {k: len(v) for k, v in times.items()} == {2: 1, 1: 1}
-    split = smoke.stream_split(cpu, frames, 2, digest)
-    assert {leg: set(stages) for leg, stages in split.items()} == {
-        "write": {"stage", "h2d", "kernels", "d2h", "write"},
-        "read": {"parse", "h2d", "kernels", "d2h", "concatenate"}}
+    parts = smoke.span_split(cpu, frames, 2, smoke.make_mesh(2, 1, devices=[cpu] * 2), digest)
+    assert list(parts) == ["stream write", "stream read", "mesh write", "mesh read"]
+    names = {part: {row.split(":")[0] for row in rows} for part, rows in parts.items()}
+    assert {"writer.write/codec.encode", "writer.close/stream.writev",
+            "writer.write/stream.writev_bytes"} <= names["stream write"]
+    assert {"reader.dispatch/reader.parse", "reader.materialize/reader.materialize"} \
+        <= names["stream read"]
+    assert {"sharded.write/sharded.encode", "sharded.write/codec.instances"} <= names["mesh write"]
+    assert {"sharded.dispatch/sharded.split", "sharded.materialize/sharded.materialize"} \
+        <= names["mesh read"]
+    assert all(row.endswith("idle -") for rows in parts.values() for row in rows
+               if "calls" in row)  # no card: no idle time
     # what phase 3 requires on the GPU: every encode launches K2 and K4
     # (gated on the device); from the reader's host depths the mixed batch
     # [camera, random] decodes with K3, the all-random batch with K5
