@@ -575,7 +575,9 @@ def span_split(device: torch.device, frames: np.ndarray, batch: int, mesh,
     after one unprofiled pass of the same calls.  Every file must have
     sha256 ``digest`` (write_video's) and every read return the frames.
     Returns {part: lines}, the parts "stream write", "stream read", "mesh
-    write" and "mesh read", each line :func:`_span_rows`' a batch; the idle
+    write" and "mesh read", each line :func:`_span_rows`' a batch (a
+    write part's with the writer's sink thread, root ``writer.sink``, whose
+    spans lie outside the profiler's timeline and show no idle); the idle
     time comes from each part's cards (none on the CPU), between the
     part's first and last program span (:func:`idle_by_span`)."""
     N, H, W = frames.shape
@@ -621,7 +623,8 @@ def span_split(device: torch.device, frames: np.ndarray, batch: int, mesh,
                 raise RuntimeError(f"phase 8 {label}: no device records from cards {cards} in "
                                    f"{PROFILE_SESSIONS} profiler sessions")
             idle = idle_by_span(prof.events(), cards) if cards else {}
-            parts[f"{label} write"] = _span_rows(table, idle, n_batches, trace.WRITE_ROOTS)
+            parts[f"{label} write"] = _span_rows(table, idle, n_batches,
+                                                 trace.WRITE_ROOTS + (trace.SINK_ROOT,))
             parts[f"{label} read"] = _span_rows(table, idle, n_batches, trace.READ_ROOTS)
     return parts
 

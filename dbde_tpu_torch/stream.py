@@ -11,7 +11,9 @@ own classes:
     one is materialized, so host parsing and the host→device copies
     overlap device compute and the copies back.
   * :class:`DbdeWriter` — encodes frame batches on ``device`` and writes
-    records from the host, keeping ``pipeline`` batches in flight.
+    records from the host, keeping ``pipeline`` batches in flight; into a
+    file descriptor the records go from a thread of their own, so the
+    ``writev`` of one batch overlaps the staging of the next.
 
 ``device`` is a torch device: ``"cpu"`` runs the codec's plain PyTorch
 versions, the default runs the CUDA kernels.  Both classes are context
@@ -45,6 +47,7 @@ import queue
 import stat
 import struct
 import threading
+from time import perf_counter
 from typing import Iterator
 
 import numpy as np
@@ -144,6 +147,87 @@ def _writev_all(fd: int, iov: list) -> int:
                 views[i] = views[i][n:]
     trace.count("stream.writev_bytes", total)
     return total
+
+
+class _Sink:
+    """The thread that writes a :class:`DbdeWriter`'s records into its file
+    descriptor, batch after batch in the order handed over, while the
+    writer's thread stages and encodes the next batches.
+
+    At most one batch waits behind the one being written: :meth:`put`
+    blocks until the thread takes the waiting one.  The thread calls
+    ``_writev_all`` (looked up at each call, so a wrapper set on it later
+    is the one called), on host memory alone: no torch or CUDA call.  A
+    batch's arrays stay in :attr:`_held` on the writer's thread until the
+    thread has written them and dropped every reference of its own, so
+    pinned memory goes back to torch's cache from the writer's thread
+    and only once no write reads it.  Between hand-offs at most two
+    batches are held, whether written, being written or queued.  A failed
+    write stops all later ones; its error is raised by the next
+    :meth:`put`, or by :meth:`close` where no ``put`` raised it.  Each
+    write's time, on this module's clock (the one :mod:`.trace` uses), and
+    its bytes go into the program's table under ``writer.sink`` from the
+    writer's thread, where the profiler records (:mod:`.trace`)."""
+
+    def __init__(self, fd: int):
+        self._fd = fd
+        self._jobs: queue.Queue = queue.Queue(maxsize=1)
+        self._held: collections.deque = collections.deque()  # arrays of each batch handed over
+        self._done: collections.deque = collections.deque()  # (seconds, bytes or None), in order
+        self._error: BaseException | None = None
+        self._raised = False
+        self._thread = threading.Thread(target=self._run, name="dbde-sink", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            iov = self._jobs.get()
+            if iov is None:
+                return
+            t0, n = perf_counter(), None
+            if self._error is None:
+                try:
+                    n = _writev_all(self._fd, iov)
+                except BaseException as e:  # handed to the writer's thread
+                    self._error = e
+            del iov  # before the batch is reported done: the writer's thread frees it
+            self._done.append((perf_counter() - t0, n))
+
+    @property
+    def failed(self) -> bool:
+        """Whether a write failed: nothing more is written."""
+        return self._error is not None
+
+    def _collect(self) -> None:
+        while self._done:
+            seconds, n = self._done.popleft()
+            self._held.popleft()
+            if n is not None:
+                trace.interval(trace.SINK_ROOT, "stream.writev", seconds)
+                trace.count("stream.writev_bytes", n, root=trace.SINK_ROOT)
+
+    def put(self, iov: list, arrays) -> None:
+        """Hand over a batch's record buffers ``iov``; ``arrays`` are what
+        they view, kept alive until they are written."""
+        self._collect()
+        if self._error is not None:
+            self._raised = True
+            raise self._error
+        self._held.append(arrays)
+        with trace.span("writer.sink_wait"):
+            self._jobs.put(iov)
+        self._collect()
+
+    def close(self) -> None:
+        """Return once every batch handed over is written (or dropped after
+        a failed write); raise the failure where no :meth:`put` did."""
+        with trace.span("writer.sink_wait"):
+            self._jobs.put(None)
+            self._thread.join()
+        self._collect()
+        if self._error is not None and not self._raised:
+            self._raised = True
+            raise self._error
 
 
 def _native_lib(use_native: bool):
@@ -427,8 +511,13 @@ class DbdeWriter:
 
     Records reach the sink by one of three paths: a vectored ``writev``
     straight from the encoded host arrays when the sink has a file
-    descriptor; the native record assembler into a reused buffer otherwise;
-    and the numpy record packer when the native library is unavailable.
+    descriptor, on a thread of the writer's own (:class:`_Sink`), so that
+    it overlaps the next batches' staging; the native record assembler
+    into a reused buffer otherwise; and the numpy record packer when the
+    native library is unavailable.  The last two write on the caller's
+    thread.  With a file descriptor, :meth:`close` returns once every
+    record is in the file, and a failed write is raised by the next
+    :meth:`write` or by :meth:`close`; no later record is written.
     """
 
     def __init__(self, path_or_file, height: int, width: int, frame_hz: float = 1.0,
@@ -446,6 +535,10 @@ class DbdeWriter:
         self.height, self.width = int(height), int(width)
         self.header = VideoHeader(height=self.height, width=self.width, frame_hz=frame_hz)
         self._f.write(self.header.pack(hz_as_integer))
+        self._sink = None
+        if self._fd is not None:
+            self._f.flush()  # the records bypass the file object's buffer
+            self._sink = _Sink(self._fd)
         self.frames_written = 0
         self.pipeline = max(1, int(pipeline))  # batches in flight on the device
         self._pending = collections.deque()
@@ -482,9 +575,8 @@ class DbdeWriter:
                 self._f.write(b"".join(record_iovecs(depths, mins, payload, n64, indices, ns)))
             elif self._fd is not None:
                 # vectored write straight from the host arrays (see record_iovecs)
-                iov = record_iovecs(depths, mins, payload, n64, indices, ns)
-                self._f.flush()
-                _writev_all(self._fd, iov)
+                self._sink.put(record_iovecs(depths, mins, payload, n64, indices, ns),
+                               (depths, mins, payload))
             else:
                 # zero-copy view over the writer's reused scratch buffer,
                 # written out before the next _drain_one touches it
@@ -494,11 +586,19 @@ class DbdeWriter:
 
     def close(self) -> None:
         with trace.span("writer.close"):
-            while self._pending:
-                self._drain_one()
-            if self._own_file and self._f is not None:
-                self._f.close()
-            self._f = None
+            try:
+                while self._pending and not (self._sink is not None and self._sink.failed):
+                    self._drain_one()
+            finally:
+                self._pending.clear()
+                try:
+                    if self._sink is not None:
+                        sink, self._sink = self._sink, None
+                        sink.close()
+                finally:
+                    if self._own_file and self._f is not None:
+                        self._f.close()
+                    self._f = None
 
     def __enter__(self):
         return self

@@ -20,11 +20,19 @@ where none is).  Work under the write roots (``writer.write``,
 read roots (``reader.dispatch``, ``reader.materialize``,
 ``sharded.dispatch``, ``sharded.materialize``) without a clock.  The
 table empties itself when a span or counter finds recording on after it
-last found it off, so a session that follows work done unprofiled starts
-from nothing.  Two sessions back to back, with no span between them, add
-into one table: call :func:`reset` before the second.  :func:`totals`
-reads the table.  No span stays open across a ``yield``.  Kernel launches are counted in :data:`.ops.launch.LAUNCHES`,
-not here.
+last found it off on the same thread, so a session that follows work done
+unprofiled starts from nothing.  Two sessions back to back, with no span
+between them, add into one table: call :func:`reset` before the second.
+:func:`totals` reads the table.  No span stays open across a ``yield``.
+Kernel launches are counted in :data:`.ops.launch.LAUNCHES`, not here.
+
+torch's profiler records on the thread that started the session: on any
+other thread spans record nothing and their finding recording off empties
+nothing.  Work timed on such a thread, as ``DbdeWriter``'s sink thread
+times its ``writev`` calls, is added to the table afterwards from the
+recording thread with :func:`interval` and :func:`count`'s ``root``,
+under a root of its own (``writer.sink``, outside the write roots: that
+time is off the writing thread's path).
 """
 
 from __future__ import annotations
@@ -39,11 +47,12 @@ from torch.profiler import record_function
 PREFIX = "dbde:"
 WRITE_ROOTS = ("writer.write", "writer.close", "sharded.write")
 READ_ROOTS = ("reader.dispatch", "reader.materialize", "sharded.dispatch", "sharded.materialize")
+SINK_ROOT = "writer.sink"  # DbdeWriter's sink thread (see the module docstring)
 
 _table: dict = {}  # (root, name) → [total s, self s, calls] or [value, calls]
 _lock = threading.Lock()
-_open = threading.local()  # .stack: the spans open on this thread, outermost first
-_saw_off = True  # recording was off at the last span or counter
+_open = threading.local()  # .stack: the spans open on this thread, outermost first;
+# .saw_off: recording was off at this thread's last span or counter
 _OFF = contextlib.nullcontext()  # what span() returns while nothing records: no allocation
 
 
@@ -58,12 +67,11 @@ def enabled() -> bool:
     """Whether spans and counters record now, emptying the table where
     nothing recorded at the last look: for a caller that has to measure
     something before it can :func:`count` it."""
-    global _saw_off
     if not _recording():
-        _saw_off = True
+        _open.saw_off = True
         return False
-    if _saw_off:
-        _saw_off = False
+    if getattr(_open, "saw_off", False):
+        _open.saw_off = False
         reset()
     return True
 
@@ -107,17 +115,33 @@ def span(name: str):
     return _Span(name) if enabled() else _OFF
 
 
-def count(name: str, value) -> None:
-    """Add ``value`` to counter ``name`` under the open root, while a
-    profiler session records."""
+def count(name: str, value, root: str | None = None) -> None:
+    """Add ``value`` to counter ``name`` under ``root`` (default: the open
+    root), while a profiler session records."""
     if not enabled():
         return
-    stack = _stack()
-    key = (stack[0].name if stack else name, name)
+    if root is None:
+        stack = _stack()
+        root = stack[0].name if stack else name
+    key = (root, name)
     with _lock:
         acc = _table.setdefault(key, [0, 0])
         acc[0] += value
         acc[1] += 1
+
+
+def interval(root: str, name: str, seconds: float) -> None:
+    """Add a finished span ``name`` of ``seconds`` under ``root``, while a
+    profiler session records: for work timed with this module's clock
+    (``time.perf_counter``) on a thread where the profiler does not record.
+    Its self time is its total."""
+    if not enabled():
+        return
+    with _lock:
+        acc = _table.setdefault((root, name), [0.0, 0.0, 0])
+        acc[0] += seconds
+        acc[1] += seconds
+        acc[2] += 1
 
 
 def totals() -> dict:

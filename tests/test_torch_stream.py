@@ -7,6 +7,8 @@ import io
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -209,8 +211,9 @@ def test_chip_smoke_rehearsal_on_cpu():
     parts = smoke.span_split(cpu, frames, 2, smoke.make_mesh(2, 1, devices=[cpu] * 2), digest)
     assert list(parts) == ["stream write", "stream read", "mesh write", "mesh read"]
     names = {part: {row.split(":")[0] for row in rows} for part, rows in parts.items()}
-    assert {"writer.write/codec.encode", "writer.close/stream.writev",
-            "writer.write/stream.writev_bytes"} <= names["stream write"]
+    assert {"writer.write/codec.encode", "writer.write/writer.sink_wait",
+            "writer.close/writer.sink_wait", "writer.sink/stream.writev",
+            "writer.sink/stream.writev_bytes"} <= names["stream write"]
     assert {"reader.dispatch/reader.parse", "reader.materialize/reader.materialize"} \
         <= names["stream read"]
     assert {"sharded.write/sharded.encode", "sharded.write/codec.instances"} <= names["mesh write"]
@@ -355,31 +358,209 @@ def pipeline_jax_file(pipeline_frames, tmp_path_factory):
     return path.read_bytes()
 
 
-@pytest.mark.parametrize("sink", ["file", "bytesio"])
+def _within(fn, seconds: float = 20.0):
+    """``fn()`` on a thread of its own, joined with a timeout, so that a
+    hung sink thread fails the test instead of hanging the suite; returns
+    what it returned, raises what it raised."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # re-raised on the test's thread
+            out["error"] = e
+
+    worker = threading.Thread(target=run, daemon=True)
+    worker.start()
+    worker.join(timeout=seconds)
+    assert not worker.is_alive(), "the writer hung"
+    if "error" in out:
+        raise out["error"]
+    return out.get("value")
+
+
+@pytest.mark.parametrize("sink", ["file", "fileobj", "bytesio"])
 @pytest.mark.parametrize("pipeline", [1, 2, 3])
 def test_writer_pipeline_bytes_match_jax(pipeline_frames, pipeline_jax_file, tmp_path,
                                          pipeline, sink):
+    """A path and a caller's open file (file descriptors: the sink thread
+    writes) and a BytesIO (assembled on the caller's thread) give the JAX
+    package's file; the caller's file stays open."""
     path = tmp_path / "p.dbde"
-    target = str(path) if sink == "file" else io.BytesIO()
-    with DbdeWriter(target, PH, PW, frame_hz=250.0, device="cpu", pipeline=pipeline) as wr:
-        for i in range(0, len(pipeline_frames), 2):
-            wr.write(pipeline_frames[i : i + 2])
-    got = path.read_bytes() if sink == "file" else target.getvalue()
+    owned = open(path, "wb") if sink == "fileobj" else None
+    target = {"file": str(path), "fileobj": owned, "bytesio": io.BytesIO()}[sink]
+
+    def write():
+        with DbdeWriter(target, PH, PW, frame_hz=250.0, device="cpu", pipeline=pipeline) as wr:
+            for i in range(0, len(pipeline_frames), 2):
+                wr.write(pipeline_frames[i : i + 2])
+
+    _within(write)
+    if owned is not None:
+        assert not owned.closed
+        owned.close()
+    got = target.getvalue() if sink == "bytesio" else path.read_bytes()
     assert got == pipeline_jax_file
 
 
+@pytest.mark.parametrize("sink", ["file", "bytesio"])
 @pytest.mark.parametrize("pipeline", [1, 2])
-def test_writer_caller_may_overwrite_its_frames(pipeline_frames, pipeline_jax_file, pipeline):
+def test_writer_caller_may_overwrite_its_frames(pipeline_frames, pipeline_jax_file, tmp_path,
+                                                pipeline, sink):
     """The caller reuses one buffer for every batch, overwriting it as soon
     as write() returns: the file is unchanged."""
-    f = io.BytesIO()
+    path = tmp_path / "p.dbde"
+    f = io.BytesIO() if sink == "bytesio" else open(path, "wb")
     buf = np.empty((2, PH, PW), np.uint8)
-    with DbdeWriter(f, PH, PW, frame_hz=250.0, device="cpu", pipeline=pipeline) as wr:
-        for i in range(0, len(pipeline_frames), 2):
-            buf[:] = pipeline_frames[i : i + 2]
-            wr.write(buf)
-            buf[:] = 0xFF
-    assert f.getvalue() == pipeline_jax_file
+
+    def write():
+        with DbdeWriter(f, PH, PW, frame_hz=250.0, device="cpu", pipeline=pipeline) as wr:
+            for i in range(0, len(pipeline_frames), 2):
+                buf[:] = pipeline_frames[i : i + 2]
+                wr.write(buf)
+                buf[:] = 0xFF
+
+    _within(write)
+    if sink == "bytesio":
+        assert f.getvalue() == pipeline_jax_file
+    else:
+        f.close()
+        assert path.read_bytes() == pipeline_jax_file
+
+
+def test_sink_keeps_records_in_order(tmp_path, monkeypatch):
+    """Many one-frame batches through a sink that is slower than the
+    writer on every other write, so the hand-off queue fills, with the
+    interpreter switching threads as often as it can: every record in
+    order, no hole, the file the oracle's, and at most two batches' arrays
+    held whenever a batch is staged."""
+    from dbde_tpu_torch import stream
+    from dbde_tpu_torch.codec import DbdeCodec
+
+    frames = make_content(16, 8, 48, kind="random")
+    frames[::3] = make_content(16, 8, 16)  # mixed depths, so records differ in size
+    writev = stream._writev_all
+    calls = []
+
+    def slow(fd, iov):
+        calls.append(len(iov))
+        if len(calls) % 2:
+            time.sleep(0.002)
+        return writev(fd, iov)
+
+    held, writers = [], []
+    stage = DbdeCodec.stage
+
+    def spy_stage(self, batch):
+        held.append(len(writers[0]._sink._held))
+        return stage(self, batch)
+
+    monkeypatch.setattr(stream, "_writev_all", slow)
+    monkeypatch.setattr(DbdeCodec, "stage", spy_stage)
+    path = tmp_path / "order.dbde"
+
+    def write():
+        with DbdeWriter(str(path), 8, 16, frame_hz=250.0, device="cpu", pipeline=1) as wr:
+            writers.append(wr)
+            for frame in frames:
+                wr.write(frame)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        _within(write)
+    finally:
+        sys.setswitchinterval(interval)
+    assert calls == [7] * len(frames)  # one hand-off a batch, 7 buffers a record
+    assert max(held) == 2  # two batches at most: written, being written or queued
+    assert path.read_bytes() == ref.encode_video(list(frames), frame_hz=250.0)
+    assert not [t for t in threading.enumerate() if t.name == "dbde-sink"]
+
+
+@pytest.mark.parametrize("pipeline", [1, 2])
+def test_sink_failure_is_raised_and_nothing_later_is_written(pipeline_frames, pipeline_jax_file,
+                                                             tmp_path, monkeypatch, pipeline):
+    """The second writev raises on the sink thread: write() or close()
+    raises it, the file holds the header and the first batch's records
+    alone, and the sink thread has ended."""
+    from dbde_tpu_torch import stream
+
+    writev = stream._writev_all
+    calls = []
+
+    def failing(fd, iov):
+        calls.append(len(iov))
+        if len(calls) == 2:
+            raise OSError(28, "No space left on device")
+        return writev(fd, iov)
+
+    monkeypatch.setattr(stream, "_writev_all", failing)
+    path = tmp_path / "fail.dbde"
+    wr = DbdeWriter(str(path), PH, PW, frame_hz=250.0, device="cpu", pipeline=pipeline)
+    thread = wr._sink._thread
+
+    def write():
+        for _ in range(4):  # the first batches again: later writes find the failure
+            for i in range(0, len(pipeline_frames), 2):
+                wr.write(pipeline_frames[i : i + 2])
+
+    with pytest.raises(OSError, match="No space left"):
+        _within(write)
+    _within(wr.close)  # raised once already: close closes quietly
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+    assert calls == [14, 14]  # nothing handed to writev after the failure
+    assert path.read_bytes() == ref.encode_video(list(pipeline_frames[:2]), frame_hz=250.0)
+
+
+def test_sink_failure_in_close_is_raised_by_close(pipeline_frames, pipeline_jax_file, tmp_path,
+                                                  monkeypatch):
+    """A failure no write() saw is raised by close(), which still ends the
+    sink thread and closes the file."""
+    from dbde_tpu_torch import stream
+
+    def failing(fd, iov):
+        raise OSError(5, "Input/output error")
+
+    monkeypatch.setattr(stream, "_writev_all", failing)
+    path = tmp_path / "fail.dbde"
+    wr = DbdeWriter(str(path), PH, PW, frame_hz=250.0, device="cpu", pipeline=2)
+    thread = wr._sink._thread
+    _within(lambda: wr.write(pipeline_frames[:2]))  # nothing drained yet
+    with pytest.raises(OSError, match="Input/output"):
+        _within(wr.close)
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+    assert wr._f is None
+    assert path.read_bytes() == pipeline_jax_file[:VIDEO_HEADER_BYTES]
+
+
+def test_sink_calls_the_writev_set_after_the_writer_opened(pipeline_frames, pipeline_jax_file,
+                                                          tmp_path, monkeypatch):
+    """A wrapper set on ``stream._writev_all`` after the writer opened (as
+    the benchmark's traced run times it) is what the sink thread calls, on
+    the sink thread, once a batch."""
+    from dbde_tpu_torch import stream
+
+    path = tmp_path / "wrapped.dbde"
+    wr = DbdeWriter(str(path), PH, PW, frame_hz=250.0, device="cpu", pipeline=2)
+    writev = stream._writev_all
+    threads = []
+
+    def wrapped(fd, iov):
+        threads.append(threading.current_thread().name)
+        return writev(fd, iov)
+
+    monkeypatch.setattr(stream, "_writev_all", wrapped)
+
+    def write():
+        with wr:
+            for i in range(0, len(pipeline_frames), 2):
+                wr.write(pipeline_frames[i : i + 2])
+
+    _within(write)
+    assert threads == ["dbde-sink"] * 3
+    assert path.read_bytes() == pipeline_jax_file
 
 
 @pytest.mark.parametrize("pipeline", [1, 2, 3])

@@ -84,13 +84,14 @@ def test_off_records_nothing_and_enters_nothing(frames, tmp_path, monkeypatch):
     assert not trace.enabled()
 
 
-WRITER = {  # (root, name): calls over the three batches
+WRITER = {  # (root, name): calls over the three batches; the writev runs on the sink thread
     ("writer.write", "writer.write"): 3, ("writer.write", "codec.stage"): 3,
     ("writer.write", "codec.encode"): 3, ("writer.write", "codec.put"): 3,
     ("writer.write", "writer.drain"): 1, ("writer.write", "codec.records"): 1,
-    ("writer.write", "stream.writev"): 1, ("writer.close", "writer.close"): 1,
+    ("writer.write", "writer.sink_wait"): 1, ("writer.close", "writer.close"): 1,
     ("writer.close", "writer.drain"): 2, ("writer.close", "codec.records"): 2,
-    ("writer.close", "stream.writev"): 2,
+    ("writer.close", "writer.sink_wait"): 3,  # two hand-offs and the join
+    ("writer.sink", "stream.writev"): 3,
 }
 READER = {  # two dispatches fill the pipeline; the last two find the end
     ("reader.dispatch", "reader.dispatch"): 5, ("reader.dispatch", "reader.parse"): 5,
@@ -127,9 +128,10 @@ def test_counters_under_their_roots(traced, frames):
 
 def test_writev_bytes_is_the_file_less_its_header(traced):
     table, _, (path, sharded) = traced
-    written = sum(table[root, "stream.writev_bytes"]["value"]
-                  for root in ("writer.write", "writer.close"))
-    assert written == os.path.getsize(path) - VIDEO_HEADER_BYTES
+    assert table["writer.sink", "stream.writev_bytes"] == {
+        "value": os.path.getsize(path) - VIDEO_HEADER_BYTES, "calls": 3}
+    assert not [root for root, name in table
+                if name.startswith("stream.writev") and root in ("writer.write", "writer.close")]
     assert table["sharded.write", "stream.writev_bytes"]["value"] == \
         os.path.getsize(sharded) - VIDEO_HEADER_BYTES
 
@@ -213,6 +215,34 @@ def test_a_root_is_its_own_threads():
     assert [key for key in trace.totals() if key[1] == "worker.span"] in (
         [], [("worker.span", "worker.span")])
     assert trace.totals()["main.root", "main.root"]["calls"] == 1
+
+
+def test_work_timed_on_another_thread_lands_under_its_root():
+    """A thread where the profiler does not record finds recording off, and
+    that empties nothing; its timed work, added from the recording thread
+    with interval() and count(root=...), lands under the root given, apart
+    from the spans open there."""
+    def work():
+        with trace.span("worker.span"):
+            trace.count("worker.bytes", 1)
+
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("writer.write"):
+            worker = threading.Thread(target=work)
+            worker.start()
+            worker.join(timeout=10)
+            with trace.span("writer.sink_wait"):
+                trace.interval(trace.SINK_ROOT, "stream.writev", 0.25)
+                trace.count("stream.writev_bytes", 7, root=trace.SINK_ROOT)
+            trace.interval(trace.SINK_ROOT, "stream.writev", 0.5)
+    assert not worker.is_alive()
+    table = trace.totals()
+    assert table["writer.sink", "stream.writev"] == {"total_s": 0.75, "self_s": 0.75, "calls": 2}
+    assert table["writer.sink", "stream.writev_bytes"] == {"value": 7, "calls": 1}
+    assert table["writer.write", "writer.write"]["calls"] == 1
+    assert table["writer.write", "writer.sink_wait"]["calls"] == 1
+    assert trace.SINK_ROOT not in trace.WRITE_ROOTS
 
 
 @pytest.mark.parametrize("stats, want", [
