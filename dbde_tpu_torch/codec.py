@@ -39,6 +39,7 @@ threads.
 from __future__ import annotations
 
 import struct
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,6 +54,7 @@ BACKENDS = ("band", "tiles")
 
 
 _NP_DTYPES = {torch.uint8: np.uint8, torch.int32: np.int32, torch.uint32: np.uint32}
+_PINNED_STATS = threading.Lock()  # one measured allocation at a time: the stats are the process's
 
 
 def _host_allocs() -> tuple[int, float]:
@@ -66,12 +68,15 @@ def _pinned(shape, dtype: torch.dtype) -> torch.Tensor:
     """An uninitialised CPU tensor in pinned memory from torch's
     pinned-memory cache.  While a profiler records, what the cache had to
     allocate from CUDA for it is counted: ``pinned.allocs`` blocks,
-    ``pinned.alloc_us`` µs (:mod:`.trace`)."""
+    ``pinned.alloc_us`` µs (:mod:`.trace`).  The cache's statistics are
+    the process's, so while a profiler records, the allocations of all
+    threads are measured one at a time."""
     if not trace.enabled():
         return torch.empty(shape, dtype=dtype, pin_memory=True)
-    blocks, us = _host_allocs()
-    out = torch.empty(shape, dtype=dtype, pin_memory=True)
-    blocks_after, us_after = _host_allocs()
+    with _PINNED_STATS:
+        blocks, us = _host_allocs()
+        out = torch.empty(shape, dtype=dtype, pin_memory=True)
+        blocks_after, us_after = _host_allocs()
     trace.count("pinned.allocs", blocks_after - blocks)
     trace.count("pinned.alloc_us", us_after - us)
     return out

@@ -3,10 +3,13 @@ and the launch itself.
 
 :data:`LAUNCHES` is the one count of kernel launches that ``chip_smoke.py``
 reads: a wrapper adds one to its key where it launches its kernel, and
-nowhere else.
+nowhere else, under a lock, so that the counts of several threads that
+launch at once add up.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -16,11 +19,13 @@ from . import build
 LAUNCHES = {"encode_depths": 0, "encode_payload": 0, "decode": 0,
             "encode_payload_u8": 0, "decode_u8": 0,
             "encode_tiles": 0, "decode_tiles": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -48,4 +53,5 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
     if rc != 0:
         msg = build.load().dbde_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1

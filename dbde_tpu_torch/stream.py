@@ -47,7 +47,6 @@ import queue
 import stat
 import struct
 import threading
-from time import perf_counter
 from typing import Iterator
 
 import numpy as np
@@ -165,15 +164,13 @@ class _Sink:
     batches are held, whether written, being written or queued.  A failed
     write stops all later ones; its error is raised by the next
     :meth:`put`, or by :meth:`close` where no ``put`` raised it.  Each
-    write's time, on this module's clock (the one :mod:`.trace` uses), and
-    its bytes go into the program's table under ``writer.sink`` from the
-    writer's thread, where the profiler records (:mod:`.trace`)."""
+    write is a span under the root ``writer.sink`` (:mod:`.trace`)."""
 
     def __init__(self, fd: int):
         self._fd = fd
         self._jobs: queue.Queue = queue.Queue(maxsize=1)
         self._held: collections.deque = collections.deque()  # arrays of each batch handed over
-        self._done: collections.deque = collections.deque()  # (seconds, bytes or None), in order
+        self._done: collections.deque = collections.deque()  # one entry a batch written or dropped
         self._error: BaseException | None = None
         self._raised = False
         self._thread = threading.Thread(target=self._run, name="dbde-sink", daemon=True)
@@ -184,14 +181,14 @@ class _Sink:
             iov = self._jobs.get()
             if iov is None:
                 return
-            t0, n = perf_counter(), None
             if self._error is None:
                 try:
-                    n = _writev_all(self._fd, iov)
+                    with trace.span(trace.SINK_ROOT):
+                        _writev_all(self._fd, iov)
                 except BaseException as e:  # handed to the writer's thread
                     self._error = e
             del iov  # before the batch is reported done: the writer's thread frees it
-            self._done.append((perf_counter() - t0, n))
+            self._done.append(None)
 
     @property
     def failed(self) -> bool:
@@ -200,11 +197,8 @@ class _Sink:
 
     def _collect(self) -> None:
         while self._done:
-            seconds, n = self._done.popleft()
+            self._done.popleft()
             self._held.popleft()
-            if n is not None:
-                trace.interval(trace.SINK_ROOT, "stream.writev", seconds)
-                trace.count("stream.writev_bytes", n, root=trace.SINK_ROOT)
 
     def put(self, iov: list, arrays) -> None:
         """Hand over a batch's record buffers ``iov``; ``arrays`` are what
@@ -518,6 +512,12 @@ class DbdeWriter:
     thread.  With a file descriptor, :meth:`close` returns once every
     record is in the file, and a failed write is raised by the next
     :meth:`write` or by :meth:`close`; no later record is written.
+
+    A writer is used from one thread at a time.  Several writers may run
+    at once on one card, each on a thread of its own (one a camera): they
+    share the card, torch's pinned-memory cache and the kernel library,
+    and each enqueues its copies and kernels on its thread's current
+    stream.
     """
 
     def __init__(self, path_or_file, height: int, width: int, frame_hz: float = 1.0,
@@ -548,7 +548,7 @@ class DbdeWriter:
         """Queue a (B, H, W) or (H, W) u8 batch for encoding.  The frames are
         copied before this returns, so the caller may reuse its array at
         once."""
-        with trace.span("writer.write"):
+        with trace.span("writer.write"), trace.off_cpu("writer.offcpu_us"):
             frames = np.asarray(frames, dtype=np.uint8)
             if frames.ndim == 2:
                 frames = frames[None]

@@ -1,38 +1,44 @@
-"""Program spans and counters, recorded only under ``torch.profiler``.
+"""Program spans and counters, recorded only while ``torch.profiler`` records.
 
 The stream, codec and parallel layers mark their work with :func:`span`
-and :func:`count`.  Both do nothing beyond one check,
-``torch.autograd._profiler_enabled()``, unless a profiler session is
-recording: no ``record_function``, no clock read, no table write.  While
-one is recording,
+and :func:`count`.  Both do nothing beyond one check of torch's
+process-wide flag (``torch.autograd.profiler._is_profiler_enabled``,
+which its profiler sets when a session starts and clears when it stops),
+unless a profiler session is recording: no ``record_function``, no clock
+read, no table write.  While one is recording, on every thread of the
+process,
 
   * ``span(name)`` opens ``record_function("dbde:" + name)``, so the span
     lies on the profiler's clock beside the device's intervals, and adds
     its host time to an in-memory table: total seconds, self seconds (the
     total less the time its child spans cover on the same thread) and
     calls;
-  * ``count(name, value)`` adds ``value`` to the table.
+  * ``count(name, value)`` adds ``value`` to the table;
+  * ``off_cpu(name)`` counts, in µs, the wall time of its block less the
+    CPU time its thread spent in it: the time the thread waited for the
+    interpreter's lock, a core, the card or another thread.
 
 The table is keyed ``(root, name)``, where ``root`` is the outermost
 program span open on the thread (the span itself, or the counter's name,
 where none is).  Work under the write roots (``writer.write``,
 ``writer.close``, ``sharded.write``) is thereby told from work under the
 read roots (``reader.dispatch``, ``reader.materialize``,
-``sharded.dispatch``, ``sharded.materialize``) without a clock.  The
-table empties itself when a span or counter finds recording on after it
-last found it off on the same thread, so a session that follows work done
-unprofiled starts from nothing.  Two sessions back to back, with no span
-between them, add into one table: call :func:`reset` before the second.
-:func:`totals` reads the table.  No span stays open across a ``yield``.
-Kernel launches are counted in :data:`.ops.launch.LAUNCHES`, not here.
+``sharded.dispatch``, ``sharded.materialize``) without a clock, and the
+work of several threads that write or read at once adds up under the
+same roots.  ``DbdeWriter``'s sink thread opens a root of its own
+(``writer.sink``, outside the write roots: that time is off the writing
+thread's path).  The table empties itself when a span or counter, on any
+thread, finds a session recording after some thread last found none, so
+a session that follows work done unprofiled starts from nothing, and a
+thread that starts recording late empties nothing.  Two sessions back to
+back, with no span between them, add into one table: call :func:`reset`
+before the second.  :func:`totals` reads the table.  No span stays open
+across a ``yield``.  Kernel launches are counted in
+:data:`.ops.launch.LAUNCHES`, not here.
 
-torch's profiler records on the thread that started the session: on any
-other thread spans record nothing and their finding recording off empties
-nothing.  Work timed on such a thread, as ``DbdeWriter``'s sink thread
-times its ``writev`` calls, is added to the table afterwards from the
-recording thread with :func:`interval` and :func:`count`'s ``root``,
-under a root of its own (``writer.sink``, outside the write roots: that
-time is off the writing thread's path).
+torch's profiler puts ``record_function`` ranges into its trace from the
+thread that started the session alone, so the ``dbde:*`` ranges of other
+threads are in the table and not in the trace.
 """
 
 from __future__ import annotations
@@ -40,8 +46,9 @@ from __future__ import annotations
 import contextlib
 import threading
 from time import perf_counter as _clock
+from time import perf_counter_ns, thread_time_ns
 
-from torch.autograd import _profiler_enabled as _recording
+import torch.autograd.profiler as _profiler
 from torch.profiler import record_function
 
 PREFIX = "dbde:"
@@ -51,8 +58,8 @@ SINK_ROOT = "writer.sink"  # DbdeWriter's sink thread (see the module docstring)
 
 _table: dict = {}  # (root, name) → [total s, self s, calls] or [value, calls]
 _lock = threading.Lock()
-_open = threading.local()  # .stack: the spans open on this thread, outermost first;
-# .saw_off: recording was off at this thread's last span or counter
+_open = threading.local()  # .stack: the spans open on this thread, outermost first
+_saw_off = False  # a thread found no session recording since the table last emptied
 _OFF = contextlib.nullcontext()  # what span() returns while nothing records: no allocation
 
 
@@ -65,14 +72,19 @@ def _stack() -> list:
 
 def enabled() -> bool:
     """Whether spans and counters record now, emptying the table where
-    nothing recorded at the last look: for a caller that has to measure
-    something before it can :func:`count` it."""
-    if not _recording():
-        _open.saw_off = True
+    some thread found nothing recording at its last look: for a caller
+    that has to measure something before it can :func:`count` it."""
+    global _saw_off
+    if not _profiler._is_profiler_enabled:
+        if not _saw_off:
+            with _lock:  # seen off under the lock, so no session's entries precede it
+                _saw_off = not _profiler._is_profiler_enabled
         return False
-    if getattr(_open, "saw_off", False):
-        _open.saw_off = False
-        reset()
+    if _saw_off:
+        with _lock:
+            if _saw_off:
+                _saw_off = False
+                _table.clear()
     return True
 
 
@@ -115,33 +127,39 @@ def span(name: str):
     return _Span(name) if enabled() else _OFF
 
 
-def count(name: str, value, root: str | None = None) -> None:
-    """Add ``value`` to counter ``name`` under ``root`` (default: the open
-    root), while a profiler session records."""
+def count(name: str, value) -> None:
+    """Add ``value`` to counter ``name`` under the open root, while a
+    profiler session records."""
     if not enabled():
         return
-    if root is None:
-        stack = _stack()
-        root = stack[0].name if stack else name
-    key = (root, name)
+    stack = _stack()
+    key = (stack[0].name if stack else name, name)
     with _lock:
         acc = _table.setdefault(key, [0, 0])
         acc[0] += value
         acc[1] += 1
 
 
-def interval(root: str, name: str, seconds: float) -> None:
-    """Add a finished span ``name`` of ``seconds`` under ``root``, while a
-    profiler session records: for work timed with this module's clock
-    (``time.perf_counter``) on a thread where the profiler does not record.
-    Its self time is its total."""
-    if not enabled():
-        return
-    with _lock:
-        acc = _table.setdefault((root, name), [0.0, 0.0, 0])
-        acc[0] += seconds
-        acc[1] += seconds
-        acc[2] += 1
+class _OffCpu:
+    __slots__ = ("name", "t0", "cpu0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0, self.cpu0 = perf_counter_ns(), thread_time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        wall, cpu = perf_counter_ns() - self.t0, thread_time_ns() - self.cpu0
+        count(self.name, (wall - cpu) / 1e3)
+        return False
+
+
+def off_cpu(name: str):
+    """A context manager that counts ``name``, in µs, as its block's wall
+    time less its thread's CPU time, while a profiler session records."""
+    return _OffCpu(name) if enabled() else _OFF
 
 
 def totals() -> dict:

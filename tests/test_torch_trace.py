@@ -6,9 +6,11 @@ events nested in their roots, self time within total, the byte counters,
 the table's reset between sessions, and the benchmark's reader of the
 table (``benchmark/readers/program.py``)."""
 
+import contextlib
 import os
 import sys
 import threading
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -23,6 +25,7 @@ from dbde_tpu_torch import DbdeReader, DbdeWriter, trace
 from dbde_tpu_torch import codec as program_codec
 from dbde_tpu_torch.bench_core import make_content
 from dbde_tpu_torch.format import VIDEO_HEADER_BYTES
+from dbde_tpu_torch.ops import launch
 from dbde_tpu_torch.parallel import iter_video_sharded, make_mesh, write_video_sharded
 from dbde_tpu_torch.utils.profiling import idle_by_span
 
@@ -145,8 +148,9 @@ def test_self_time_within_total(traced):
 def test_spans_are_dbde_events_nested_in_their_roots(traced):
     events = [e for e in traced[1] if e.name.startswith(trace.PREFIX)]
     names = {e.name[len(trace.PREFIX):] for e in events}
-    assert {name for _, name in traced[0] if "." in name} - {
-        "stream.writev_bytes", "codec.instances"} <= names
+    # the profiler's trace holds its own thread's ranges: not the sink thread's
+    assert {name for (root, name), v in traced[0].items()
+            if "total_s" in v and root != trace.SINK_ROOT} <= names
     is_root = {e.name: e.name[len(trace.PREFIX):] in trace.WRITE_ROOTS + trace.READ_ROOTS
                for e in events}
     roots = [e.time_range for e in events if is_root[e.name]]
@@ -199,8 +203,8 @@ def test_a_span_or_counter_outside_any_root_is_its_own_root():
 
 
 def test_a_root_is_its_own_threads():
-    """A span on another thread (where torch's profiler may not record)
-    never lands under the root open on this one."""
+    """A span on another thread (where torch's profiler puts nothing into
+    its trace) never lands under the root open on this one."""
     def work():
         with trace.span("worker.span"):
             pass
@@ -212,19 +216,20 @@ def test_a_root_is_its_own_threads():
             worker.start()
             worker.join(timeout=10)
     assert not worker.is_alive()
-    assert [key for key in trace.totals() if key[1] == "worker.span"] in (
-        [], [("worker.span", "worker.span")])
+    assert [key for key in trace.totals() if key[1] == "worker.span"] == [
+        ("worker.span", "worker.span")]
     assert trace.totals()["main.root", "main.root"]["calls"] == 1
 
 
 def test_work_timed_on_another_thread_lands_under_its_root():
-    """A thread where the profiler does not record finds recording off, and
-    that empties nothing; its timed work, added from the recording thread
-    with interval() and count(root=...), lands under the root given, apart
-    from the spans open there."""
+    """Work on another thread while a session records lands under that
+    thread's own root, as the sink thread's writes do under
+    ``writer.sink``, apart from the spans open on the recording thread."""
     def work():
-        with trace.span("worker.span"):
-            trace.count("worker.bytes", 1)
+        with trace.span(trace.SINK_ROOT):
+            with trace.span("stream.writev"):
+                time.sleep(0.01)
+            trace.count("stream.writev_bytes", 7)
 
     trace.reset()
     with profile(activities=[ProfilerActivity.CPU]):
@@ -233,16 +238,109 @@ def test_work_timed_on_another_thread_lands_under_its_root():
             worker.start()
             worker.join(timeout=10)
             with trace.span("writer.sink_wait"):
-                trace.interval(trace.SINK_ROOT, "stream.writev", 0.25)
-                trace.count("stream.writev_bytes", 7, root=trace.SINK_ROOT)
-            trace.interval(trace.SINK_ROOT, "stream.writev", 0.5)
+                pass
     assert not worker.is_alive()
     table = trace.totals()
-    assert table["writer.sink", "stream.writev"] == {"total_s": 0.75, "self_s": 0.75, "calls": 2}
+    writev = table["writer.sink", "stream.writev"]
+    assert writev["calls"] == 1 and writev["total_s"] >= 0.01
+    assert table["writer.sink", "writer.sink"]["total_s"] >= writev["total_s"]
     assert table["writer.sink", "stream.writev_bytes"] == {"value": 7, "calls": 1}
     assert table["writer.write", "writer.write"]["calls"] == 1
     assert table["writer.write", "writer.sink_wait"]["calls"] == 1
+    assert not [name for root, name in table if root == "writer.write" and "writev" in name]
     assert trace.SINK_ROOT not in trace.WRITE_ROOTS
+
+
+def _writers_on_threads(frames, tmp, cameras: int) -> None:
+    """``cameras`` DbdeWriters at once, each on a thread of its own and
+    into a file of its own (the sink thread's path), three batches each."""
+    errors = []
+
+    def camera(c):
+        try:
+            with DbdeWriter(os.path.join(tmp, f"cam{c}.dbde"), H, W, device=CPU) as wr:
+                for i in range(0, N, B):
+                    wr.write(frames[i:i + B])
+        except BaseException as e:  # re-raised on the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=camera, args=(c,)) for c in range(cameras)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not [t for t in threads if t.is_alive()]
+    if errors:
+        raise errors[0]
+
+
+def test_every_writer_thread_records(frames, tmp_path):
+    """Four writer threads under a session started on this one: every
+    ``writer.write`` call, its stage and the sink thread's writes are in
+    the table, four times one writer's; the table names no thread."""
+    calls = {("writer.write", "writer.write"): 3, ("writer.write", "codec.stage"): 3,
+             ("writer.write", "writer.offcpu_us"): 3, ("writer.close", "writer.close"): 1,
+             ("writer.close", "writer.sink_wait"): 3, ("writer.sink", "writer.sink"): 3,
+             ("writer.sink", "stream.writev"): 3, ("writer.sink", "stream.writev_bytes"): 3}
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _writers_on_threads(frames, str(tmp_path), 4)
+    table = trace.totals()
+    assert {key: table[key]["calls"] for key in calls} == {k: 4 * n for k, n in calls.items()}
+    size = os.path.getsize(tmp_path / "cam0.dbde") - VIDEO_HEADER_BYTES
+    assert table["writer.sink", "stream.writev_bytes"]["value"] == 4 * size
+
+
+def test_offcpu_is_the_write_less_its_cpu_time(frames, tmp_path, monkeypatch):
+    """``writer.offcpu_us`` counts each ``write``'s wall time less its
+    thread's CPU time: a stage that sleeps 30 ms shows as 30 ms off the CPU."""
+    stage = program_codec.DbdeCodec.stage
+
+    def sleepy(self, *args, **kwargs):
+        time.sleep(0.03)
+        return stage(self, *args, **kwargs)
+
+    monkeypatch.setattr(program_codec.DbdeCodec, "stage", sleepy)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with DbdeWriter(str(tmp_path / "w.dbde"), H, W, device=CPU) as wr:
+            for i in range(0, N, B):
+                wr.write(frames[i:i + B])
+    table = trace.totals()
+    off = table["writer.write", "writer.offcpu_us"]
+    assert off["calls"] == 3
+    assert 3 * 30e3 <= off["value"] <= 1e6 * table["writer.write", "writer.write"]["total_s"]
+
+
+def test_a_thread_that_starts_late_empties_nothing():
+    """A thread that last looked before the session, or looks after it,
+    empties nothing that the session recorded."""
+    looked, go = threading.Event(), threading.Event()
+
+    def late():
+        with trace.span("late.before"):  # the session has not started
+            looked.set()
+        go.wait(timeout=10)
+        with trace.span("late.root"):
+            pass
+
+    trace.reset()
+    worker = threading.Thread(target=late)
+    worker.start()
+    assert looked.wait(timeout=10)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("main.root"):
+            pass
+        go.set()
+        worker.join(timeout=10)
+        with trace.span("main.again"):
+            pass
+    assert not worker.is_alive()
+    with trace.span("after.session"):  # finds nothing recording
+        pass
+    assert {key: v["calls"] for key, v in trace.totals().items()} == {
+        ("main.root", "main.root"): 1, ("late.root", "late.root"): 1,
+        ("main.again", "main.again"): 1}
 
 
 @pytest.mark.parametrize("stats, want", [
@@ -262,6 +360,86 @@ def test_pinned_allocations_are_counted(monkeypatch, stats, want):
     table = trace.totals()
     assert (table["writer.write", "pinned.allocs"]["value"],
             table["writer.write", "pinned.alloc_us"]["value"]) == want
+
+
+class _ProcessStats:
+    """A pinned cache's process-wide statistics, whose every allocation
+    takes 2 ms, one block and 10 µs: a measurement that lets another
+    thread's allocation into its window counts it twice."""
+
+    def __init__(self, empty):
+        self._empty, self.blocks, self.us = empty, 0, 0
+
+    def stats(self):
+        return {"num_host_alloc": self.blocks, "host_alloc_time.total": self.us}
+
+    def alloc(self, *args, pin_memory=False, **kwargs):
+        self.blocks += 1
+        time.sleep(0.002)
+        self.us += 10
+        return self._empty(*args, **kwargs)
+
+
+def _on_threads(n: int, fn) -> None:
+    threads = [threading.Thread(target=fn) for _ in range(n)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not [t for t in threads if t.is_alive()]
+
+
+def _pinned_totals(monkeypatch, threads: int) -> tuple:
+    cache = _ProcessStats(torch.empty)
+    monkeypatch.setattr(program_codec.torch.cuda, "host_memory_stats", cache.stats)
+    monkeypatch.setattr(program_codec.torch, "empty", cache.alloc)
+
+    def write():
+        with trace.span("writer.write"):
+            for _ in range(5):
+                program_codec._pinned((4,), torch.uint8)
+
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _on_threads(threads, write)
+    monkeypatch.undo()
+    table = trace.totals()
+    return (table["writer.write", "pinned.allocs"]["value"],
+            table["writer.write", "pinned.alloc_us"]["value"])
+
+
+def test_pinned_counters_add_up_over_threads(monkeypatch):
+    assert _pinned_totals(monkeypatch, 1) == (5, 50)
+    assert _pinned_totals(monkeypatch, 4) == (20, 200)
+
+
+@pytest.mark.parametrize("threads", [4, 2 * (os.cpu_count() or 4)], ids=["four", "over-cores"])
+def test_launch_counts_add_up_over_threads(monkeypatch, threads):
+    """``LAUNCHES`` from threads that launch at once: n threads count n
+    times one thread's launches (a fake launcher; no card needed)."""
+    monkeypatch.setattr(launch.torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(launch.torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=0))
+    per_thread = 4000
+
+    def launches():
+        for _ in range(per_thread):
+            launch.launch("decode", lambda *args: 0, CPU)
+
+    launch.reset_launches()
+    try:
+        _on_threads(1, launches)
+        assert launch.LAUNCHES["decode"] == per_thread
+        launch.reset_launches()
+        _on_threads(threads, launches)
+        assert launch.LAUNCHES["decode"] == threads * per_thread
+    finally:
+        launch.reset_launches()
 
 
 def _made_up(table):
