@@ -270,13 +270,16 @@ class DbdeCodec:
         a copy in new pinned memory from torch's pinned-memory cache, which
         hands it out again only after the copies that read it have
         completed, so the caller may reuse ``a`` at once; on a CPU codec
-        ``a`` itself (its calls finish before they return)."""
+        ``a`` itself (its calls finish before they return).  A numpy array
+        of ``dtype`` is copied from where it is, a strided view (a shard's
+        band) too, in one copy."""
         with trace.span("codec.stage"):
-            src = _host_tensor(a, dtype)
             if self.device.type == "cpu":
-                return src
+                return _host_tensor(a, dtype)
+            src = (a if isinstance(a, np.ndarray) and a.dtype == _NP_DTYPES[dtype]
+                   else _host_tensor(a, dtype).numpy())
             staged = _pinned(src.shape, dtype)
-            np.copyto(staged.numpy(), src.numpy())  # one memcpy, like a pageable cudaMemcpy's
+            np.copyto(staged.numpy(), src)  # one memcpy, like a pageable cudaMemcpy's
             trace.count("codec.staged_bytes", staged.nbytes)
             return staged
 

@@ -34,22 +34,27 @@ from the depths on the device, launching K3 and K5 gated the same way.
 On CPU devices the plain versions run instead.  The tiles backend (K6/K7)
 has no sharded path, as in the JAX package.
 
-Per-shard payload segments keep a worst-case slot of 16 words a tile; the
-host assembles a file's ragged streams from (segment, total) pairs and
-splits them again for a mesh decode (:func:`assemble_payload_padded`,
-:func:`split_payload_host`).
+On a CUDA mesh the writer copies each byte once on the host each way:
+every shard's band goes from the caller's frames straight into pinned
+memory, and each record is written from the shards' pinned copies back,
+its depths, minima and payload prefix band by band, with no assembly.
+:func:`encode_sharded` places the shards' fields into whole-batch
+arrays, each payload segment in a worst-case slot of 16 words a tile;
+:func:`assemble_payload_padded` and :func:`split_payload_host` convert
+between such segments and a file's ragged streams.
 """
 
 from __future__ import annotations
 
 import collections
+import struct
 
 import numpy as np
 import torch
 
 from .. import trace
-from ..codec import DbdeCodec, HostCopy, _host, record_event, record_iovecs, resolve_device
-from ..format import VideoHeader, tile_grid
+from ..codec import DbdeCodec, HostCopy, _host, record_event, resolve_device
+from ..format import FrameHeader, VideoHeader, tile_grid
 from ..ops.bitpack import MAX_WORDS_PER_TILE
 from ..stream import DbdeReader, _writev_all
 
@@ -184,7 +189,7 @@ def _encode_shards(images: np.ndarray, mesh: Mesh):
         B_loc = _local_batch(B, n_data)
         images = _pad_rows(images, 8 * h)
         L = 8 * h_loc
-        return [[(codec, codec.encode(_band(images, d, t, B_loc, L)))
+        return [[(codec, codec.encode(codec.stage(_band(images, d, t, B_loc, L))))
                  for t, codec in enumerate(row)]
                 for d, row in enumerate(_shard_codecs(mesh, L, W))]
 
@@ -215,10 +220,10 @@ def encode_sharded(images, mesh: Mesh, backend: str = "auto"):
     """
     _check_backend(backend)
     images = np.asarray(images, dtype=np.uint8)
-    B, H, W = images.shape
+    H, W = images.shape[1:]
     grid = _encode_shards(images, mesh)
     totals, bases = _copy_totals(grid)
-    depths, mins, payload = _copy_fields(grid, totals, B, H, W)
+    depths, mins, payload = _place_fields(_copy_fields(grid, totals), H, W)
     return depths, mins, payload, totals, bases, 8 * tile_grid(W, H)[0]
 
 
@@ -237,28 +242,39 @@ def _copy_totals(grid) -> tuple[np.ndarray, np.ndarray]:
                 np.concatenate([b for _, b in sums], axis=1))
 
 
-def _copy_fields(grid, totals: np.ndarray, B: int, H: int, W: int):
-    """The second round: (depths (B, T) u8, mins (B, T) u8, payload (B,
-    n_tiles*S_local) u32 segments), each shard's payload copied up to its
-    largest total."""
+def _copy_fields(grid, totals: np.ndarray):
+    """The second round → rows, as ``grid``, of each shard's (depths
+    (B_loc, T_loc) u8, mins (B_loc, T_loc) u8, payload (B_loc, live) u32),
+    its payload copied up to its largest total: on a CUDA device views of
+    pinned memory, which goes back to torch's cache once they are dropped
+    (:meth:`HostCopy.wait`); on the CPU the tensors' own arrays."""
     with trace.span("sharded.fields"):
-        n_data, n_tiles = len(grid), len(grid[0])
-        _, w, h_loc = _band_geometry(W, H, n_tiles)
-        B_loc, T_loc = B // n_data, h_loc * w
+        B_loc = grid[0][0][1].depths.shape[0]
         copies = []
         for d, row in enumerate(grid):
+            copies.append([])
             for t, (_, enc) in enumerate(row):
                 live = int(totals[t, d * B_loc:(d + 1) * B_loc].max(initial=0))
-                copies.append(HostCopy([enc.depths, enc.mins, enc.payload[:, :live]]))
-        depths = np.empty((B, n_tiles * T_loc), np.uint8)
-        mins = np.empty((B, n_tiles * T_loc), np.uint8)
-        payload = np.empty((B, n_tiles, segment_slot_words(W, H, n_tiles)), np.uint32)
-        for i, copy in enumerate(copies):
-            d, t = divmod(i, n_tiles)
+                copies[-1].append(HostCopy([enc.depths, enc.mins, enc.payload[:, :live]]))
+        return [[tuple(copy.wait()) for copy in row] for row in copies]
+
+
+def _place_fields(shards, H: int, W: int):
+    """:func:`_copy_fields`'s rows → (depths (B, T) u8, mins (B, T) u8,
+    payload (B, n_tiles*S_local) u32 segments): each shard's fields in
+    their place, its live payload at the head of its slot."""
+    n_tiles = len(shards[0])
+    B_loc, T_loc = shards[0][0][0].shape
+    B = len(shards) * B_loc
+    depths = np.empty((B, n_tiles * T_loc), np.uint8)
+    mins = np.empty((B, n_tiles * T_loc), np.uint8)
+    payload = np.empty((B, n_tiles, segment_slot_words(W, H, n_tiles)), np.uint32)
+    for d, row in enumerate(shards):
+        for t, (dep, mn, live) in enumerate(row):
             frames, tiles = slice(d * B_loc, (d + 1) * B_loc), slice(t * T_loc, (t + 1) * T_loc)
-            depths[frames, tiles], mins[frames, tiles], live = copy.wait()
+            depths[frames, tiles], mins[frames, tiles] = dep, mn
             payload[frames, t, :live.shape[1]] = live
-        return depths, mins, payload.reshape(B, -1)
+    return depths, mins, payload.reshape(B, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -382,10 +398,10 @@ def assemble_payload_host(segments, totals) -> list[np.ndarray]:
 def assemble_payload_padded(segments, totals, out=None):
     """Sharded segments → one padded (B, mx) u32 payload matrix + n64 (B,).
 
-    The writer's host leg: each frame's flat stream is its shards' live
-    prefixes back to back, written into an uninitialised row-padded matrix
-    (consumers such as :func:`~dbde_tpu_torch.codec.record_iovecs` read
-    only ``2*n64`` words a row), one copy per (frame, shard).
+    Each frame's flat stream is its shards' live prefixes back to back,
+    written into an uninitialised row-padded matrix (consumers such as
+    :func:`~dbde_tpu_torch.codec.record_iovecs` read only ``2*n64`` words
+    a row), one copy per (frame, shard).
 
     ``out``: an optional reusable (≥B, ≥mx) u32 buffer; rows may be wider
     than mx.  Returns (matrix (B, ≥mx) u32, n64 (B,) i64); allocates when
@@ -459,16 +475,51 @@ def _write_step(batch_size: int, n_data: int) -> int:
     return max(batch_size - batch_size % n_data, n_data)
 
 
-def _assemble(payload, totals, buf):
-    """:func:`assemble_payload_padded` into ``buf`` (None at first) →
-    (matrix, n64, the buffer for the next batch).  The buffer is reused
-    across batches: ``os.writev`` is synchronous, so it is free the moment
-    ``_writev_all`` returns."""
+def record_iovecs(depths, mins, payload, n64, indices=None, elapsed_ns=None) -> list:
+    """Per-frame record buffers for vectored IO with each frame's fields in
+    bands: :func:`~dbde_tpu_torch.codec.record_iovecs`'s layout, where
+    ``depths[b]``, ``mins[b]`` and ``payload[b]`` are sequences of 1-D
+    arrays, frame ``b``'s bands in order, written back to back after
+    their ``i32`` length: 7 + 3·(bands − 1) buffers a frame.
+
+    The arrays go in as zero-copy views; they must stay unmodified until
+    the write consumes them.
+    """
+    iov = []
+    for b in range(len(n64)):
+        idx = int(indices[b]) if indices is not None else b
+        ns = int(elapsed_ns[b]) if elapsed_ns is not None else 0
+        iov.append(FrameHeader(index=idx, elapsed_ns=ns).pack())
+        for bands in (depths[b], mins[b]):
+            iov.append(struct.pack("<i", sum(len(a) for a in bands)))
+            iov += [a.data for a in bands]
+        iov.append(struct.pack("<i", int(n64[b])))
+        iov += [a.data for a in payload[b]]
+    return iov
+
+
+def _record_iovecs(shards, totals: np.ndarray, n: int, first: int) -> list:
+    """The records of a batch's first ``n`` frames, indices from ``first``,
+    straight from :func:`_copy_fields`'s rows (:func:`record_iovecs`):
+    each frame's depths and minima rows and payload prefixes of
+    ``totals[t, b]`` words, band by band.  The shards' arrays must stay
+    alive and unchanged until the write returns."""
     with trace.span("sharded.assemble"):
-        pay, n64 = assemble_payload_padded(payload, totals, out=buf)
-        if buf is None or pay.shape[1] > buf.shape[1]:
-            buf = pay if pay.base is None else None
-        return pay, n64, buf
+        B_loc = shards[0][0][0].shape[0]
+        rows = [(shards[b // B_loc], b % B_loc, totals[:, b]) for b in range(n)]
+        return record_iovecs([[dep[j] for dep, _, _ in row] for row, j, _ in rows],
+                             [[mn[j] for _, mn, _ in row] for row, j, _ in rows],
+                             [[live[j, :k] for (_, _, live), k in zip(row, words)]
+                              for row, j, words in rows],
+                             totals[:, :n].sum(axis=0) // 2, indices=range(first, first + n))
+
+
+def _inplace_bytes(iov, shards) -> int:
+    """The bytes of ``iov`` that lie in the shards' arrays, so that a copy
+    made on the way to the write does not count."""
+    arrays = [a for row in shards for shard in row for a in shard]
+    return sum(v.nbytes for v in iov if not isinstance(v, bytes)
+               and any(np.may_share_memory(np.asarray(v), a) for a in arrays))
 
 
 def write_video_sharded(path, frames, mesh: Mesh, frame_hz: float = 1.0,
@@ -477,28 +528,29 @@ def write_video_sharded(path, frames, mesh: Mesh, frame_hz: float = 1.0,
     """Encode a (N, H, W) u8 stack to a ``.dbde`` file on a device mesh.
 
     Each batch is split over the mesh (frames over ``data``, tile-row bands
-    over ``tiles``); the host assembles the ragged segments
-    (:func:`assemble_payload_padded`) and writes records byte-identical to
-    the single-device writer's.  A tail batch that does not fill the data
-    axis is padded with repeats of its last frame, which are dropped at
-    the file.
+    over ``tiles``); every shard's fields are copied back and its records
+    written from those copies band by band (:func:`_record_iovecs`),
+    byte-identical to the single-device writer's.  A tail batch that does
+    not fill the data axis is padded with repeats of its last frame, which
+    are dropped at the file.
     """
     with trace.span("sharded.write"):
+        _check_backend(backend)
         frames = np.asarray(frames, dtype=np.uint8)
         N, H, W = frames.shape
         n_data = mesh.shape["data"]
         step = _write_step(batch_size, n_data)
-        pay_buf = None
         with open(path, "wb") as f:
             f.write(VideoHeader(height=H, width=W, frame_hz=frame_hz).pack(hz_as_integer))
             f.flush()  # the records below bypass the buffer via writev on the fd
             for i in range(0, N, step):
                 batch = frames[i : i + step]
-                n = batch.shape[0]
-                depth, mn, payload, totals, _, _ = encode_sharded(_pad_data(batch, n_data), mesh,
-                                                                  backend=backend)
-                pay, n64, pay_buf = _assemble(payload, totals, pay_buf)
-                iov = record_iovecs(depth[:n], mn[:n], pay[:n], n64[:n], indices=range(i, i + n))
+                grid = _encode_shards(_pad_data(batch, n_data), mesh)
+                totals, _ = _copy_totals(grid)
+                shards = _copy_fields(grid, totals)  # held until the synchronous writev returns
+                iov = _record_iovecs(shards, totals, batch.shape[0], i)
+                if trace.enabled():
+                    trace.count("sharded.inplace_bytes", _inplace_bytes(iov, shards))
                 _writev_all(f.fileno(), iov)
 
 

@@ -285,12 +285,19 @@ def test_iter_video_sharded_bounded_walker(tmp_path):
     assert [h.index for h in headers] == list(range(7))
 
 
-@pytest.mark.parametrize("n_data,n_tiles", [(2, 2), (3, 1)])
-def test_sharded_file_write_and_read(tmp_path, n_data, n_tiles):
+@pytest.mark.parametrize("n_data,n_tiles,H,W,kind", [
+    pytest.param(2, 2, 32, 24, "camera", id="2-2"),
+    pytest.param(3, 1, 32, 24, "camera", id="3-1"),
+    pytest.param(1, 1, 32, 24, "camera", id="1-1"),
+    pytest.param(1, 4, 27, 21, "camera", id="1-4-ragged"),  # H padded, W off the 8-grid
+    pytest.param(4, 2, 30, 21, "camera", id="4-2-ragged"),
+    pytest.param(2, 2, 32, 24, "random", id="2-2-depth8"),  # every tile depth 8: K4
+])
+def test_sharded_file_write_and_read(tmp_path, n_data, n_tiles, H, W, kind):
     """A tail batch that does not fill the data axis: the file is the
     oracle's and the port's single-device writer's, byte for byte."""
     mesh = _mesh(n_data, n_tiles)
-    frames = _frames(B=5, H=32, W=24, seed=21)
+    frames = _frames(B=5, H=H, W=W, seed=21) if kind == "camera" else make_content(W, H, 5, kind)
     p, single = tmp_path / "s.dbde", tmp_path / "single.dbde"
     write_video_sharded(p, frames, mesh, frame_hz=7.0, batch_size=4)
     write_video(single, frames, frame_hz=7.0, device="cpu", batch_size=4)
@@ -299,6 +306,43 @@ def test_sharded_file_write_and_read(tmp_path, n_data, n_tiles):
     assert vh.frame_hz == 7.0
     assert [h.index for h in headers] == list(range(5))
     np.testing.assert_array_equal(out, frames)
+
+
+def test_sharded_records_are_written_from_the_shards_copies(tmp_path, monkeypatch):
+    """write_video_sharded hands writev each frame's depths, minima and
+    payload pieces straight from the shards' copies back (_copy_fields),
+    7 + 3*(n_tiles - 1) buffers a frame, and assembles no payload; the
+    file is still the oracle's."""
+    mesh = _mesh(2, 2)
+    frames = _frames(B=5, H=32, W=24, seed=43)
+    copied, written = [], []
+    copy_fields, writev_all = sharding._copy_fields, sharding._writev_all
+
+    def spy_copy_fields(*args):
+        shards = copy_fields(*args)
+        copied.extend(a for row in shards for shard in row for a in shard)
+        return shards
+
+    def spy_writev_all(fd, iov):
+        written.append(list(iov))
+        return writev_all(fd, iov)
+
+    def no_assembly(*args, **kwargs):
+        raise AssertionError("the writer assembled a payload matrix")
+
+    monkeypatch.setattr(sharding, "_copy_fields", spy_copy_fields)
+    monkeypatch.setattr(sharding, "_writev_all", spy_writev_all)
+    monkeypatch.setattr(sharding, "assemble_payload_padded", no_assembly)
+    p = tmp_path / "s.dbde"
+    write_video_sharded(p, frames, mesh, frame_hz=7.0, batch_size=4)
+    assert p.read_bytes() == ref.encode_video(list(frames), frame_hz=7.0)
+    assert [len(iov) for iov in written] == [4 * 10, 1 * 10]  # the tail's padded frame is dropped
+    for iov in written:
+        for k, piece in enumerate(iov):
+            if k % 10 in (0, 1, 4, 7):  # the header and the three length words
+                assert isinstance(piece, bytes)
+            else:
+                assert any(np.shares_memory(np.asarray(piece), a) for a in copied), k
 
 
 def test_dryrun_multichip_on_cpu(capsys):

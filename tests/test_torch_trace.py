@@ -26,7 +26,7 @@ from dbde_tpu_torch import codec as program_codec
 from dbde_tpu_torch.bench_core import make_content
 from dbde_tpu_torch.format import VIDEO_HEADER_BYTES
 from dbde_tpu_torch.ops import launch
-from dbde_tpu_torch.parallel import iter_video_sharded, make_mesh, write_video_sharded
+from dbde_tpu_torch.parallel import iter_video_sharded, make_mesh, sharding, write_video_sharded
 from dbde_tpu_torch.utils.profiling import idle_by_span
 
 N, H, W, B = 6, 32, 40, 2  # three batches of 2; 4 tile rows, so 2 bands
@@ -103,9 +103,10 @@ READER = {  # two dispatches fill the pipeline; the last two find the end
 }
 SHARDED = {  # two batches of four shards each way
     ("sharded.write", "sharded.write"): 1, ("sharded.write", "sharded.encode"): 2,
-    ("sharded.write", "codec.encode"): 8, ("sharded.write", "sharded.totals"): 2,
+    ("sharded.write", "codec.stage"): 8, ("sharded.write", "codec.encode"): 8,
+    ("sharded.write", "sharded.totals"): 2,
     ("sharded.write", "sharded.fields"): 2, ("sharded.write", "sharded.assemble"): 2,
-    ("sharded.write", "codec.records"): 2, ("sharded.write", "stream.writev"): 2,
+    ("sharded.write", "stream.writev"): 2,
     ("sharded.dispatch", "sharded.dispatch"): 4, ("sharded.dispatch", "reader.parse"): 3,
     ("sharded.dispatch", "sharded.split"): 2, ("sharded.dispatch", "codec.decode_dispatch"): 8,
     ("sharded.materialize", "sharded.materialize"): 2,
@@ -137,6 +138,33 @@ def test_writev_bytes_is_the_file_less_its_header(traced):
                 if name.startswith("stream.writev") and root in ("writer.write", "writer.close")]
     assert table["sharded.write", "stream.writev_bytes"]["value"] == \
         os.path.getsize(sharded) - VIDEO_HEADER_BYTES
+
+
+def test_inplace_bytes_is_the_writev_less_headers_and_lengths(traced):
+    """The sharded writer hands writev every depths, minima and payload
+    byte straight from the shards' copies: all it writes but each
+    record's 20-byte header and three length words."""
+    table = traced[0]
+    assert ("sharded.write", "codec.records") not in table
+    assert table["sharded.write", "sharded.inplace_bytes"] == {
+        "value": table["sharded.write", "stream.writev_bytes"]["value"] - N * (20 + 3 * 4),
+        "calls": 2}
+
+
+def test_inplace_bytes_leaves_out_a_copy(frames, tmp_path, monkeypatch):
+    """Bands copied on the way to writev are not written in place: the
+    counter reads 0 while the file is still exact."""
+    record_iovecs = sharding.record_iovecs
+
+    def copied(depths, mins, payload, *args, **kwargs):
+        return record_iovecs(*([[a.copy() for a in bands] for bands in field]
+                               for field in (depths, mins, payload)), *args, **kwargs)
+
+    monkeypatch.setattr(sharding, "record_iovecs", copied)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _pipeline(frames, str(tmp_path))
+    assert trace.totals()["sharded.write", "sharded.inplace_bytes"] == {"value": 0, "calls": 2}
 
 
 def test_self_time_within_total(traced):
