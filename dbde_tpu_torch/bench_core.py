@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from . import ref_numpy
-from .codec import DbdeCodec, record_iovecs
+from .codec import DbdeCodec, one_band, record_iovecs
 from .format import FrameHeader, VideoHeader
 from .stream import DbdeReader, DbdeWriter, _GatedPool, _writev_all
 from .utils.profiling import card_name, cuda_event_seconds, measure_device_seconds
@@ -329,7 +329,8 @@ def run_composed_stream_bench(width: int = 2048, height: int = 2048,
                 for i in range(nbatches):
                     t0 = time.perf_counter()
                     _writev_all(f.fileno(), record_iovecs(
-                        depths, mins, payload, n64, indices=range(i * B, i * B + B)))
+                        *one_band(depths, mins, payload, n64), n64,
+                        indices=range(i * B, i * B + B)))
                     t_write.append(time.perf_counter() - t0)
             enc_bytes = os.path.getsize(path)
         t_asm = float(np.median(t_write))

@@ -109,12 +109,6 @@ def get_lib():
             P8, P8, ctypes.POINTER(ctypes.c_uint32), L,
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
         ]
-        lib.dbde_assemble_records.restype = L
-        lib.dbde_assemble_records.argtypes = [
-            P8, P8, ctypes.POINTER(ctypes.c_uint32), L,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint64),
-            ctypes.POINTER(ctypes.c_double), L, L, P8, L, ctypes.c_int,
-        ]
         _lib = lib
         return _lib
 
@@ -205,40 +199,3 @@ def gather_fields(buf: bytes, data_offsets, tiles: int, payload_stride_words: in
     if bad:
         raise ValueError(f"frame {bad - 1}: corrupt record")
     return depths, mins, payload, n64s
-
-
-def assemble_records(depths, mins, payload, n64s, indices, elapsed_ns,
-                     threads: int = 4, scratch: list | None = None) -> memoryview:
-    """Batched serialize of (header + frame data) records → contiguous bytes.
-
-    Returns a zero-copy memoryview over an internal buffer — consume it
-    (e.g. ``f.write``) before the next call that shares ``scratch``.  Pass a
-    (one-element) ``scratch`` list to reuse the output buffer across calls
-    (skips the per-batch page-fault cost, ~40% of assembly time on a cold
-    buffer); None allocates fresh.
-    """
-    lib = get_lib()
-    depths = np.ascontiguousarray(depths, np.uint8)
-    mins = np.ascontiguousarray(mins, np.uint8)
-    payload = np.ascontiguousarray(payload, np.uint32)
-    n64s = np.ascontiguousarray(n64s, np.int32)
-    B, T = depths.shape
-    idx = np.ascontiguousarray(indices, np.uint64)
-    ela = np.asarray([float(e) for e in elapsed_ns], np.float64)  # f64 quirk
-    cap = int(32 * B + 2 * T * B + 8 * n64s.astype(np.int64).sum())
-    if scratch is not None and scratch and scratch[0].size >= cap:
-        out = scratch[0]
-    else:
-        out = np.empty(int(cap * 1.25) if scratch is not None else cap, np.uint8)
-        if scratch is not None:
-            scratch[:] = [out]
-    n = lib.dbde_assemble_records(
-        _p(depths, ctypes.c_uint8), _p(mins, ctypes.c_uint8),
-        _p(payload, ctypes.c_uint32), payload.shape[1],
-        _p(n64s, ctypes.c_int32), _p(idx, ctypes.c_uint64),
-        _p(ela, ctypes.c_double), B, T,
-        _p(out, ctypes.c_uint8), out.size, _clamp_threads(threads),
-    )
-    if n < 0:
-        raise ValueError("output capacity miscalculated")
-    return memoryview(out.data)[:n]

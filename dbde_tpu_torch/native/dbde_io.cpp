@@ -1,11 +1,12 @@
-// Native host-side DBDE record IO: scanning, batched field gather, and
-// batched record assembly at memcpy speed.
+// Native host-side DBDE record IO for the reader: scanning and batched
+// field gather at memcpy speed.
 //
 // The port's own copy of dbde_tpu/native/dbde_io.cpp: the equivalent of the
 // reference's C++ file layer (dbde_file_walker, dbde_util.cpp:362-426)
 // redesigned for a batched device codec: instead of decoding one frame per call, the host scans and splits
-// many self-delimiting records at once, moving bytes between the on-disk
-// ragged layout and the device's fixed-stride arrays.  Compiled with
+// many self-delimiting records at once, moving bytes from the on-disk
+// ragged layout into the device's fixed-stride arrays.  The writer lays
+// out records in Python (codec.record_iovecs) and hands them to writev.  Compiled with
 // -O3 -march=native; exposed through a plain C ABI for ctypes.
 //
 // Record layout parity (dbde_util.cpp:137-196): 20-byte frame header
@@ -31,8 +32,6 @@ inline uint32_t rd_u32(const uint8_t* p) {
     std::memcpy(&v, p, 4);
     return v;
 }
-
-inline void wr_i32(uint8_t* p, int32_t v) { std::memcpy(p, &v, 4); }
 
 constexpr long FRAME_HEADER = 20;
 
@@ -127,38 +126,6 @@ long dbde_gather_fields(const uint8_t* buf, long len, const long* data_offsets,
         n64s[b] = (int32_t)n64;
     });
     return bad.load(std::memory_order_relaxed);
-}
-
-// Batched fixed-stride->ragged assembly of full records (header + data).
-// out must hold sum over b of (32 + 2*tiles + 8*n64s[b]).  Writes each
-// record back-to-back; returns total bytes written.
-long dbde_assemble_records(const uint8_t* depths, const uint8_t* mins,
-                           const uint32_t* payload, long payload_stride_words,
-                           const int32_t* n64s, const uint64_t* indices,
-                           const double* elapsed_ns, long batch, long tiles,
-                           uint8_t* out, long out_cap, int threads) {
-    // prefix offsets (serial, trivial)
-    std::vector<long> offs(batch + 1);
-    offs[0] = 0;
-    for (long b = 0; b < batch; b++)
-        offs[b + 1] = offs[b] + FRAME_HEADER + 12 + 2 * tiles + 8 * (long)n64s[b];
-    if (offs[batch] > out_cap) return -1;
-
-    parallel_over(batch, threads, [&](long b) {
-        uint8_t* p = out + offs[b];
-        wr_i32(p, 2);
-        std::memcpy(p + 4, &indices[b], 8);
-        std::memcpy(p + 12, &elapsed_ns[b], 8);  // f64 numeric quirk (format.py)
-        p += FRAME_HEADER;
-        wr_i32(p, (int32_t)tiles);
-        std::memcpy(p + 4, depths + b * tiles, tiles);
-        wr_i32(p + 4 + tiles, (int32_t)tiles);
-        std::memcpy(p + 8 + tiles, mins + b * tiles, tiles);
-        wr_i32(p + 8 + 2 * tiles, n64s[b]);
-        std::memcpy(p + 12 + 2 * tiles, payload + b * payload_stride_words,
-                    8 * (long)n64s[b]);
-    });
-    return offs[batch];
 }
 
 }  // extern "C"

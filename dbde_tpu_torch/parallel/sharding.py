@@ -24,6 +24,9 @@ are enqueued for every shard before the first is waited for, so no card's
 copy queues behind another's.  A device may appear more than once in a
 mesh: its shards then run one after another on its current stream.
 :func:`mesh_slots` lays a mesh's slots over the visible cards in turn.
+Each call builds one grid of codecs, one a shard: the file writer and
+walker once for the whole file, whose geometry is fixed, and the
+one-batch functions once for their batch.
 
 Each shard runs the band kernels through the codec, which reads nothing
 back: K1, then K2 and K4, gated on the device by the shard's own flag so
@@ -47,14 +50,13 @@ between such segments and a file's ragged streams.
 from __future__ import annotations
 
 import collections
-import struct
 
 import numpy as np
 import torch
 
 from .. import trace
-from ..codec import DbdeCodec, HostCopy, _host, record_event, resolve_device
-from ..format import FrameHeader, VideoHeader, tile_grid
+from ..codec import DbdeCodec, HostCopy, _host, record_event, record_iovecs, resolve_device
+from ..format import VideoHeader, tile_grid
 from ..ops.bitpack import MAX_WORDS_PER_TILE
 from ..stream import DbdeReader, _writev_all
 
@@ -164,9 +166,12 @@ def _pad_data(batch: np.ndarray, n_data: int) -> np.ndarray:
     return np.concatenate([batch, np.repeat(batch[-1:], pad, 0)]) if pad else batch
 
 
-def _shard_codecs(mesh: Mesh, L: int, W: int) -> list[list[DbdeCodec]]:
-    """One codec a shard, for bands of ``L`` rows of ``W`` on its device."""
-    return [[DbdeCodec(L, W, device=dev) for dev in row] for row in mesh.devices]
+def _shard_codecs(mesh: Mesh, H: int, W: int) -> list[list[DbdeCodec]]:
+    """The codec grid of ``mesh`` for (H, W) frames: one codec a shard, on
+    its device, for its band of whole tile rows (``8*h_loc`` pixel rows of
+    the frames edge-padded to whole tile rows)."""
+    _, _, h_loc = _band_geometry(W, H, mesh.devices.shape[1])
+    return [[DbdeCodec(8 * h_loc, W, device=dev) for dev in row] for row in mesh.devices]
 
 
 def _band(images: np.ndarray, d: int, t: int, B_loc: int, L: int) -> np.ndarray:
@@ -176,22 +181,21 @@ def _band(images: np.ndarray, d: int, t: int, B_loc: int, L: int) -> np.ndarray:
     return images[d * B_loc:(d + 1) * B_loc, t * L:(t + 1) * L]
 
 
-def _encode_shards(images: np.ndarray, mesh: Mesh):
-    """Encode every shard's band on its device → rows of (codec, EncodedBatch).
+def _encode_shards(images: np.ndarray, codecs):
+    """Encode every shard's band on its codec of the grid ``codecs``
+    (:func:`_shard_codecs`) → rows of (codec, EncodedBatch).
 
     H is edge-padded first to whole tile rows (the format's rule: repeat
     the last row), so shard (d, t) holds frames ``[d*B_loc, (d+1)*B_loc)``
-    and pixel rows ``[t*8*h_loc, (t+1)*8*h_loc)`` of the padded frames."""
+    and pixel rows ``[t*L, (t+1)*L)`` of the padded frames, ``L`` its
+    codec's height."""
     with trace.span("sharded.encode"):
-        B, H, W = images.shape
-        n_data, n_tiles = mesh.devices.shape
-        h, _, h_loc = _band_geometry(W, H, n_tiles)
-        B_loc = _local_batch(B, n_data)
-        images = _pad_rows(images, 8 * h)
-        L = 8 * h_loc
+        B_loc = _local_batch(images.shape[0], len(codecs))
+        L = codecs[0][0].height
+        images = _pad_rows(images, L * len(codecs[0]))
         return [[(codec, codec.encode(codec.stage(_band(images, d, t, B_loc, L))))
                  for t, codec in enumerate(row)]
-                for d, row in enumerate(_shard_codecs(mesh, L, W))]
+                for d, row in enumerate(codecs)]
 
 
 def _totals_bases(row) -> tuple[torch.Tensor, torch.Tensor]:
@@ -221,7 +225,7 @@ def encode_sharded(images, mesh: Mesh, backend: str = "auto"):
     _check_backend(backend)
     images = np.asarray(images, dtype=np.uint8)
     H, W = images.shape[1:]
-    grid = _encode_shards(images, mesh)
+    grid = _encode_shards(images, _shard_codecs(mesh, H, W))
     totals, bases = _copy_totals(grid)
     depths, mins, payload = _place_fields(_copy_fields(grid, totals), H, W)
     return depths, mins, payload, totals, bases, 8 * tile_grid(W, H)[0]
@@ -298,18 +302,24 @@ def decode_sharded_dispatch(depths, mins, segments, mesh: Mesh, H: int, W: int,
     it, so the value may be materialized under any current stream.
     """
     _check_backend(backend)
-    n_data, n_tiles = mesh.devices.shape
-    _, w, h_loc = _band_geometry(W, H, n_tiles)
+    return _decode_shards(depths, mins, segments, _shard_codecs(mesh, H, W))
+
+
+def _decode_shards(depths, mins, segments, codecs):
+    """:func:`decode_sharded_dispatch` on the codec grid ``codecs``
+    (:func:`_shard_codecs`), which a walk builds once."""
+    n_data, n_tiles = len(codecs), len(codecs[0])
     depths, mins, segments = _host(depths), _host(mins), _host(segments)
     B_loc = _local_batch(depths.shape[0], n_data)
     if segments.ndim != 2 or segments.shape[1] % n_tiles:
         raise ValueError(f"segments must be (B, n_tiles*S), got {segments.shape} "
                          f"for {n_tiles} bands")
     S = segments.shape[1] // n_tiles
+    T_loc = codecs[0][0].tiles
     return [[_dispatched(codec, codec.decode_dispatch(
-                *_shard_fields(depths, mins, segments, d, t, B_loc, h_loc * w, S)))
+                *_shard_fields(depths, mins, segments, d, t, B_loc, T_loc, S)))
              for t, codec in enumerate(row)]
-            for d, row in enumerate(_shard_codecs(mesh, 8 * h_loc, W))]
+            for d, row in enumerate(codecs)]
 
 
 def _shard_fields(depths, mins, segments, d: int, t: int, B_loc: int, T_loc: int, S: int):
@@ -372,7 +382,8 @@ def sharded_roundtrip_step(images, mesh: Mesh, backend: str = "auto"):
     images = np.asarray(images, dtype=np.uint8)
     B, H, W = images.shape
     unit = 8 * mesh.shape["tiles"]
-    grid = _encode_shards(_pad_rows(images, -(-H // unit) * unit), mesh)
+    Hpad = -(-H // unit) * unit
+    grid = _encode_shards(_pad_rows(images, Hpad), _shard_codecs(mesh, Hpad, W))
     pending = [[_dispatched(codec, codec.decode_dispatch(enc.depths, enc.mins, enc.payload))
                 for codec, enc in row] for row in grid]
     first = mesh.devices[0, 0]
@@ -475,32 +486,11 @@ def _write_step(batch_size: int, n_data: int) -> int:
     return max(batch_size - batch_size % n_data, n_data)
 
 
-def record_iovecs(depths, mins, payload, n64, indices=None, elapsed_ns=None) -> list:
-    """Per-frame record buffers for vectored IO with each frame's fields in
-    bands: :func:`~dbde_tpu_torch.codec.record_iovecs`'s layout, where
-    ``depths[b]``, ``mins[b]`` and ``payload[b]`` are sequences of 1-D
-    arrays, frame ``b``'s bands in order, written back to back after
-    their ``i32`` length: 7 + 3·(bands − 1) buffers a frame.
-
-    The arrays go in as zero-copy views; they must stay unmodified until
-    the write consumes them.
-    """
-    iov = []
-    for b in range(len(n64)):
-        idx = int(indices[b]) if indices is not None else b
-        ns = int(elapsed_ns[b]) if elapsed_ns is not None else 0
-        iov.append(FrameHeader(index=idx, elapsed_ns=ns).pack())
-        for bands in (depths[b], mins[b]):
-            iov.append(struct.pack("<i", sum(len(a) for a in bands)))
-            iov += [a.data for a in bands]
-        iov.append(struct.pack("<i", int(n64[b])))
-        iov += [a.data for a in payload[b]]
-    return iov
-
-
 def _record_iovecs(shards, totals: np.ndarray, n: int, first: int) -> list:
     """The records of a batch's first ``n`` frames, indices from ``first``,
-    straight from :func:`_copy_fields`'s rows (:func:`record_iovecs`):
+    straight from :func:`_copy_fields`'s rows
+    (:func:`~dbde_tpu_torch.codec.record_iovecs`, bound here by import,
+    so that a patch of this module's name reaches this writer alone):
     each frame's depths and minima rows and payload prefixes of
     ``totals[t, b]`` words, band by band.  The shards' arrays must stay
     alive and unchanged until the write returns."""
@@ -540,12 +530,13 @@ def write_video_sharded(path, frames, mesh: Mesh, frame_hz: float = 1.0,
         N, H, W = frames.shape
         n_data = mesh.shape["data"]
         step = _write_step(batch_size, n_data)
+        codecs = _shard_codecs(mesh, H, W)
         with open(path, "wb") as f:
             f.write(VideoHeader(height=H, width=W, frame_hz=frame_hz).pack(hz_as_integer))
             f.flush()  # the records below bypass the buffer via writev on the fd
             for i in range(0, N, step):
                 batch = frames[i : i + step]
-                grid = _encode_shards(_pad_data(batch, n_data), mesh)
+                grid = _encode_shards(_pad_data(batch, n_data), codecs)
                 totals, _ = _copy_totals(grid)
                 shards = _copy_fields(grid, totals)  # held until the synchronous writev returns
                 iov = _record_iovecs(shards, totals, batch.shape[0], i)
@@ -565,6 +556,13 @@ def _pad_records(depths, mins, payload, n_data: int):
             np.concatenate([payload, np.zeros((pad, payload.shape[1]), np.uint32)]))
 
 
+def _walker(path, mesh: Mesh, batch_size: int, hz_as_integer: bool) -> DbdeReader:
+    """The stream reader that parses a sharded walk's records on the host
+    (its own codec stays idle)."""
+    return DbdeReader(path, batch_size=max(batch_size, mesh.shape["data"]),
+                      device=mesh.devices[0, 0], hz_as_integer=hz_as_integer)
+
+
 def iter_video_sharded(path, mesh: Mesh, backend: str = "auto",
                        batch_size: int = 16, hz_as_integer: bool = False,
                        pipeline: int = 2, uniform8: bool = False):
@@ -575,9 +573,11 @@ def iter_video_sharded(path, mesh: Mesh, backend: str = "auto",
     (:meth:`~dbde_tpu_torch.stream.DbdeReader.iter_raw`; its own codec
     stays idle), each batch's flat payloads are split into per-shard
     segments (:func:`split_payload_host`), and every shard's decode is
-    launched before the previous batch is waited for: up to ``pipeline``
-    batches are in flight, so the next batch's parse and split overlap
-    the device work.  Memory is O(pipeline · batch).
+    launched on the walk's one codec grid before the previous batch is
+    waited for: up to ``pipeline`` batches are in flight, so the next
+    batch's parse and split overlap the device work.  Memory is
+    O(pipeline · batch).  ``uniform8`` is accepted for the JAX package's
+    contract and changes nothing (as in :func:`decode_sharded_dispatch`).
 
     A tail batch that does not fill the data axis is padded with zero
     records (depth 0 everywhere) and cropped after the decode.  A segment
@@ -587,54 +587,54 @@ def iter_video_sharded(path, mesh: Mesh, backend: str = "auto",
     (:func:`decode_sharded_dispatch`), so the frames do not depend on the
     stream current at each ``next()``.
     """
-    n_data = mesh.shape["data"]
-    n_tiles = mesh.shape["tiles"]
-    with DbdeReader(path, batch_size=max(batch_size, n_data), device=mesh.devices[0, 0],
-                    hz_as_integer=hz_as_integer) as rd:
-        H, W = rd.height, rd.width
-        Hp = 8 * tile_grid(W, H)[0]
-        raw = rd.iter_raw()
-        pending = collections.deque()
-        seg_pool: dict = {}  # batch rows → free segment buffers
+    with _walker(path, mesh, batch_size, hz_as_integer) as rd:
+        yield from _walk(rd, mesh, backend, pipeline)
 
-        def dispatch() -> bool:
-            with trace.span("sharded.dispatch"):
-                item = next(raw, None)
-                if item is None:
-                    return False
-                headers, arrays = item
-                depths, mins, payload = _pad_records(*arrays[:3], n_data)
-                free = seg_pool.setdefault(depths.shape[0], [])
-                segments = split_payload_host(payload, depths, H, W, n_tiles, backend,
-                                              out=free.pop() if free else None)
-                out = decode_sharded_dispatch(depths, mins, segments, mesh, H=H, W=W, Hp=Hp,
-                                              backend=backend, uniform8=uniform8)
-                pending.append((headers, out, segments))
-                return True
 
-        while len(pending) < pipeline and dispatch():
-            pass
-        while pending:
-            dispatch()  # parse + split + launch the next batch while this one runs
-            headers, out, segments = pending.popleft()
-            with trace.span("sharded.materialize"):
-                frames = decode_sharded_materialize(out, H, W)[:len(headers)]
-                seg_pool[segments.shape[0]].append(segments)  # decoded ⇒ copies done
-            yield headers, frames
+def _walk(rd: DbdeReader, mesh: Mesh, backend: str, pipeline: int = 2):
+    """:func:`iter_video_sharded` over the records of the open reader ``rd``."""
+    _check_backend(backend)
+    n_data, n_tiles = mesh.devices.shape
+    H, W = rd.height, rd.width
+    codecs = _shard_codecs(mesh, H, W)
+    raw = rd.iter_raw()
+    pending = collections.deque()
+    seg_pool: dict = {}  # batch rows → free segment buffers
+
+    def dispatch() -> bool:
+        with trace.span("sharded.dispatch"):
+            item = next(raw, None)
+            if item is None:
+                return False
+            headers, arrays = item
+            depths, mins, payload = _pad_records(*arrays[:3], n_data)
+            free = seg_pool.setdefault(depths.shape[0], [])
+            segments = split_payload_host(payload, depths, H, W, n_tiles, backend,
+                                          out=free.pop() if free else None)
+            pending.append((headers, _decode_shards(depths, mins, segments, codecs), segments))
+            return True
+
+    while len(pending) < pipeline and dispatch():
+        pass
+    while pending:
+        dispatch()  # parse + split + launch the next batch while this one runs
+        headers, out, segments = pending.popleft()
+        with trace.span("sharded.materialize"):
+            frames = decode_sharded_materialize(out, H, W)[:len(headers)]
+            seg_pool[segments.shape[0]].append(segments)  # decoded ⇒ copies done
+        yield headers, frames
 
 
 def read_video_sharded(path, mesh: Mesh, backend: str = "auto",
                        batch_size: int = 16, hz_as_integer: bool = False):
     """Decode a whole ``.dbde`` file on a device mesh →
     (VideoHeader, [FrameHeader], (N, H, W) u8); the whole-video wrapper of
-    :func:`iter_video_sharded`."""
+    :func:`iter_video_sharded`, on the one reader of its walk."""
     headers_all, chunks = [], []
-    for headers, frames in iter_video_sharded(path, mesh, backend=backend,
-                                              batch_size=batch_size,
-                                              hz_as_integer=hz_as_integer):
-        headers_all.extend(headers)
-        chunks.append(frames)
-    with DbdeReader(path, device=mesh.devices[0, 0], hz_as_integer=hz_as_integer) as rd:
+    with _walker(path, mesh, batch_size, hz_as_integer) as rd:
+        for headers, frames in _walk(rd, mesh, backend):
+            headers_all.extend(headers)
+            chunks.append(frames)
         header, H, W = rd.header, rd.height, rd.width
     frames = np.concatenate(chunks) if chunks else np.empty((0, H, W), np.uint8)
     return header, headers_all, frames

@@ -52,7 +52,8 @@ from typing import Iterator
 import numpy as np
 
 from . import trace
-from .codec import DbdeCodec, HostCopy, record_event, record_iovecs, unpack_frames_bytes
+from .codec import (DbdeCodec, HostCopy, one_band, record_event, record_iovecs,
+                    unpack_frames_bytes)
 from .format import (
     FRAME_HEADER_BYTES,
     MAX_DIM,
@@ -224,10 +225,6 @@ class _Sink:
             raise self._error
 
 
-def _native_lib(use_native: bool):
-    return native_binding if use_native and native_binding.native_available() else None
-
-
 class DbdeReader:
     """Batched streaming reader over a ``.dbde`` file, decoding on ``device``.
 
@@ -261,7 +258,8 @@ class DbdeReader:
         self.pipeline = max(1, int(pipeline))
         self._readahead = bool(readahead)
         self._gather_scratch = {"nslots": int(reuse_buffers)} if reuse_buffers else None
-        self._native = _native_lib(use_native)
+        self._native = (native_binding if use_native and native_binding.native_available()
+                        else None)
         raw = self._f.read(VIDEO_HEADER_BYTES)
         if len(raw) < VIDEO_HEADER_BYTES:
             raise ValueError("file too short for a video header")
@@ -503,15 +501,16 @@ class DbdeWriter:
     codec's device-to-host stream, so it waits for no later batch) and
     writes its records.
 
-    Records reach the sink by one of three paths: a vectored ``writev``
-    straight from the encoded host arrays when the sink has a file
-    descriptor, on a thread of the writer's own (:class:`_Sink`), so that
-    it overlaps the next batches' staging; the native record assembler
-    into a reused buffer otherwise; and the numpy record packer when the
-    native library is unavailable.  The last two write on the caller's
+    Records (:func:`~dbde_tpu_torch.codec.record_iovecs`) reach the sink
+    by one of two paths: a vectored ``writev`` straight from the encoded
+    host arrays when the sink has a file descriptor, on a thread of the
+    writer's own (:class:`_Sink`), so that it overlaps the next batches'
+    staging; otherwise one ``write`` of the joined records on the caller's
     thread.  With a file descriptor, :meth:`close` returns once every
     record is in the file, and a failed write is raised by the next
     :meth:`write` or by :meth:`close`; no later record is written.
+    ``use_native`` is accepted for the JAX writer's signature and changes
+    nothing the writer does.
 
     A writer is used from one thread at a time.  Several writers may run
     at once on one card, each on a thread of its own (one a camera): they
@@ -530,8 +529,7 @@ class DbdeWriter:
         try:
             self._fd = self._f.fileno()
         except (AttributeError, OSError, ValueError, io.UnsupportedOperation):
-            self._fd = None  # BytesIO and friends → assembled records
-        self._native = _native_lib(use_native)
+            self._fd = None  # BytesIO and friends → one write of the joined records
         self.height, self.width = int(height), int(width)
         self.header = VideoHeader(height=self.height, width=self.width, frame_hz=frame_hz)
         self._f.write(self.header.pack(hz_as_integer))
@@ -542,7 +540,6 @@ class DbdeWriter:
         self.frames_written = 0
         self.pipeline = max(1, int(pipeline))  # batches in flight on the device
         self._pending = collections.deque()
-        self._asm_scratch: list = []  # reused assemble_records output buffer
 
     def write(self, frames: np.ndarray, indices=None, elapsed_ns=None) -> None:
         """Queue a (B, H, W) or (H, W) u8 batch for encoding.  The frames are
@@ -571,18 +568,12 @@ class DbdeWriter:
             live = 2 * int(n64.max()) if len(n64) else 0
             (payload,) = self._codec.copy_to_host([enc.payload[:, :live]],
                                                   after=fields.event).wait()
-            if self._fd is None and self._native is None:
-                self._f.write(b"".join(record_iovecs(depths, mins, payload, n64, indices, ns)))
-            elif self._fd is not None:
-                # vectored write straight from the host arrays (see record_iovecs)
-                self._sink.put(record_iovecs(depths, mins, payload, n64, indices, ns),
-                               (depths, mins, payload))
+            with trace.span("codec.records"):
+                iov = record_iovecs(*one_band(depths, mins, payload, n64), n64, indices, ns)
+            if self._sink is not None:
+                self._sink.put(iov, (depths, mins, payload))  # views of these arrays
             else:
-                # zero-copy view over the writer's reused scratch buffer,
-                # written out before the next _drain_one touches it
-                self._f.write(self._native.assemble_records(
-                    depths, mins, payload, n64, indices=indices, elapsed_ns=ns,
-                    scratch=self._asm_scratch))
+                self._f.write(b"".join(iov))
 
     def close(self) -> None:
         with trace.span("writer.close"):

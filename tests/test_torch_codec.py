@@ -21,12 +21,17 @@ from dbde_tpu.golden_vectors import (
     README_10x10_MINS,
     README_10x10_U64S,
 )
+from dbde_tpu_torch import soak, stream
 from dbde_tpu_torch.codec import (
     DbdeCodec,
     EncodedBatch,
+    one_band,
     pack_frames_bytes,
+    record_iovecs,
     unpack_frames_bytes,
 )
+from dbde_tpu_torch.format import VIDEO_HEADER_BYTES
+from dbde_tpu_torch.parallel import sharding
 
 
 def _encode(frames: np.ndarray) -> EncodedBatch:
@@ -234,6 +239,50 @@ def test_unpack_frames_bytes_count_mismatch(field, match):
     for unpack in (unpack_frames_bytes, jax_unpack_frames_bytes):
         with pytest.raises(ValueError, match=match):
             unpack(bytes(bad), 20, 12, offsets)
+
+
+@pytest.mark.parametrize("bands", [1, 2, 3])
+def test_record_iovecs_bands_give_the_one_band_bytes(bands):
+    """A batch's depths, minima and payload cut into 1, 2 and 3 bands a
+    frame: 7 + 3*(bands - 1) buffers a frame, whose bytes are the one-band
+    layout's and soak.records', the struct-built oracle's."""
+    frames = make_adversarial(36, 28, 3, maxd=8, seed=6)
+    depths, mins, payload, n64 = _encode(frames).to_numpy()
+    T = depths.shape[1]
+    cuts = np.linspace(0, T, bands + 1).astype(int)[1:-1]  # tile bands, a ragged one too
+    pieces = [np.split(payload[b, : 2 * int(n)], [int(n) * k // bands for k in range(1, bands)])
+              for b, n in enumerate(n64)]
+    iov = record_iovecs([np.split(d, cuts) for d in depths], [np.split(m, cuts) for m in mins],
+                        pieces, n64)
+    assert len(iov) == 3 * (7 + 3 * (bands - 1))
+    one = record_iovecs(*one_band(depths, mins, payload, n64), n64)
+    assert b"".join(iov) == b"".join(one) == b"".join(soak.records(depths, mins, payload, n64))
+
+
+@pytest.mark.parametrize("patched", ["stream", "sharding"])
+def test_record_iovecs_patch_reaches_its_own_writer_alone(patched, tmp_path, monkeypatch):
+    """The two writers call the one layout through their own module's name:
+    a wrapper set on one name (the benchmark's write_half_batch fault)
+    halves that writer's batches and leaves the other's file exact."""
+    assert stream.record_iovecs is sharding.record_iovecs is record_iovecs
+    frames = make_adversarial(24, 16, 4, maxd=8, seed=9)
+
+    def half(depths, mins, payload, n64, indices=None, elapsed_ns=None):
+        k = len(n64) // 2
+        return record_iovecs(depths[:k], mins[:k], payload[:k], n64[:k],
+                             list(indices)[:k], None if elapsed_ns is None else elapsed_ns[:k])
+
+    monkeypatch.setattr({"stream": stream, "sharding": sharding}[patched], "record_iovecs", half)
+    single, sharded = tmp_path / "single.dbde", tmp_path / "sharded.dbde"
+    stream.write_video(str(single), frames, device="cpu", batch_size=4)
+    sharding.write_video_sharded(str(sharded), frames,
+                                 sharding.make_mesh(2, 2, devices=[torch.device("cpu")] * 4),
+                                 batch_size=4)
+    want = ref.encode_video(list(frames), frame_hz=1.0)
+    half_file = VIDEO_HEADER_BYTES + sum(len(r) for r in pack_frames_bytes(_encode(frames[:2])))
+    written = {"stream": single.read_bytes(), "sharding": sharded.read_bytes()}
+    assert written.pop(patched) == want[:half_file]
+    assert written.popitem()[1] == want
 
 
 # -- the uniform depth-8 pair and its dispatch ---------------------------------

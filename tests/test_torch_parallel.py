@@ -285,6 +285,49 @@ def test_iter_video_sharded_bounded_walker(tmp_path):
     assert [h.index for h in headers] == list(range(7))
 
 
+def test_sharded_write_and_walk_each_build_one_codec_grid(tmp_path, monkeypatch):
+    """Three batches each way on a 2x2 mesh: the writer and the walker each
+    build one codec a shard, once a call, not once a batch."""
+    built = []
+
+    class Counted(sharding.DbdeCodec):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    monkeypatch.setattr(sharding, "DbdeCodec", Counted)
+    mesh = _mesh(2, 2)
+    frames = _frames(B=12, H=32, W=24, seed=29)
+    p = tmp_path / "w.dbde"
+    write_video_sharded(p, frames, mesh, batch_size=4)
+    assert p.read_bytes() == ref.encode_video(list(frames), frame_hz=1.0)
+    assert [(c.height, c.width) for c in built] == [(16, 24)] * 4
+    built.clear()
+    chunks = [chunk for _, chunk in iter_video_sharded(p, mesh, batch_size=4)]
+    assert len(chunks) == 3 and len(built) == 4
+    np.testing.assert_array_equal(np.concatenate(chunks), frames)
+
+
+def test_read_video_sharded_opens_the_file_once(tmp_path, monkeypatch):
+    """read_video_sharded takes the video header from its walk's reader."""
+    mesh = _mesh(2, 1)
+    frames = _frames(B=3, H=16, W=24, seed=37)
+    p = tmp_path / "w.dbde"
+    write_video(p, frames, frame_hz=3.0, device="cpu", batch_size=2)
+    opened = []
+    init = sharding.DbdeReader.__init__
+
+    def counted(self, *args, **kwargs):
+        opened.append(args[0])
+        init(self, *args, **kwargs)
+
+    monkeypatch.setattr(sharding.DbdeReader, "__init__", counted)
+    vh, headers, out = read_video_sharded(p, mesh, batch_size=2)
+    assert opened == [p]
+    assert (vh.height, vh.width, vh.frame_hz, len(headers)) == (16, 24, 3.0, 3)
+    np.testing.assert_array_equal(out, frames)
+
+
 @pytest.mark.parametrize("n_data,n_tiles,H,W,kind", [
     pytest.param(2, 2, 32, 24, "camera", id="2-2"),
     pytest.param(3, 1, 32, 24, "camera", id="3-1"),

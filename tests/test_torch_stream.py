@@ -41,9 +41,9 @@ def jax_file(frames, tmp_path_factory):
 
 
 def _write_port(frames, target: str, batch: int = 2) -> bytes:
-    """Port writer output through each of the base class's sinks: a file
-    descriptor (vectored writes), a BytesIO with the native assembler, a
-    BytesIO with the numpy record packer."""
+    """Port writer output into a BytesIO, a sink with no file descriptor
+    (one write of the joined records), with ``use_native`` on and off: the
+    option, kept for the JAX writer's signature, changes nothing."""
     f = io.BytesIO()
     with DbdeWriter(f, H, W, frame_hz=250.0, device="cpu",
                     use_native=(target != "bytesio-numpy")) as wr:
