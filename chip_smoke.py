@@ -576,8 +576,9 @@ def span_split(device: torch.device, frames: np.ndarray, batch: int, mesh,
     sha256 ``digest`` (write_video's) and every read return the frames.
     Returns {part: lines}, the parts "stream write", "stream read", "mesh
     write" and "mesh read", each line :func:`_span_rows`' a batch (a
-    write part's with the writer's sink thread, root ``writer.sink``, whose
-    spans lie outside the profiler's timeline and show no idle); the idle
+    write part's with the writer's sink thread, root ``writer.sink``, and
+    the sharded write's, under ``sharded.write``, whose spans lie outside
+    the profiler's timeline and show no idle); the idle
     time comes from each part's cards (none on the CPU), between the
     part's first and last program span (:func:`idle_by_span`)."""
     N, H, W = frames.shape

@@ -50,6 +50,7 @@ between such segments and a file's ragged streams.
 from __future__ import annotations
 
 import collections
+import contextlib
 
 import numpy as np
 import torch
@@ -58,7 +59,7 @@ from .. import trace
 from ..codec import DbdeCodec, HostCopy, _host, record_event, record_iovecs, resolve_device
 from ..format import VideoHeader, tile_grid
 from ..ops.bitpack import MAX_WORDS_PER_TILE
-from ..stream import DbdeReader, _writev_all
+from ..stream import DbdeReader, _Sink
 
 
 class Mesh:
@@ -523,6 +524,14 @@ def write_video_sharded(path, frames, mesh: Mesh, frame_hz: float = 1.0,
     byte-identical to the single-device writer's.  A tail batch that does
     not fill the data axis is padded with repeats of its last frame, which
     are dropped at the file.
+
+    The records are written by a sink thread of the call's own
+    (:class:`~dbde_tpu_torch.stream._Sink`, its spans under the root
+    ``sharded.write``), batch after batch, while this thread stages,
+    encodes and copies back the next batch; each batch's shard copies are
+    held here until their write returns.  A failed write is raised from
+    here and stops all later ones; an error of this thread's is raised as
+    it is, once the sink thread has ended.
     """
     with trace.span("sharded.write"):
         _check_backend(backend)
@@ -534,15 +543,22 @@ def write_video_sharded(path, frames, mesh: Mesh, frame_hz: float = 1.0,
         with open(path, "wb") as f:
             f.write(VideoHeader(height=H, width=W, frame_hz=frame_hz).pack(hz_as_integer))
             f.flush()  # the records below bypass the buffer via writev on the fd
-            for i in range(0, N, step):
-                batch = frames[i : i + step]
-                grid = _encode_shards(_pad_data(batch, n_data), codecs)
-                totals, _ = _copy_totals(grid)
-                shards = _copy_fields(grid, totals)  # held until the synchronous writev returns
-                iov = _record_iovecs(shards, totals, batch.shape[0], i)
-                if trace.enabled():
-                    trace.count("sharded.inplace_bytes", _inplace_bytes(iov, shards))
-                _writev_all(f.fileno(), iov)
+            sink = _Sink(f.fileno(), root="sharded.write")
+            try:
+                for i in range(0, N, step):
+                    batch = frames[i : i + step]
+                    grid = _encode_shards(_pad_data(batch, n_data), codecs)
+                    totals, _ = _copy_totals(grid)
+                    shards = _copy_fields(grid, totals)
+                    iov = _record_iovecs(shards, totals, batch.shape[0], i)
+                    if trace.enabled():
+                        trace.count("sharded.inplace_bytes", _inplace_bytes(iov, shards))
+                    sink.put(iov, shards)  # held until their write returns
+            except BaseException:
+                with contextlib.suppress(Exception):  # this thread's error, not the sink's
+                    sink.close()
+                raise
+            sink.close()
 
 
 def _pad_records(depths, mins, payload, n_data: int):

@@ -150,9 +150,10 @@ def _writev_all(fd: int, iov: list) -> int:
 
 
 class _Sink:
-    """The thread that writes a :class:`DbdeWriter`'s records into its file
-    descriptor, batch after batch in the order handed over, while the
-    writer's thread stages and encodes the next batches.
+    """The thread that writes a writer's records into its file descriptor,
+    batch after batch in the order handed over, while the writer's thread
+    stages and encodes the next batches (:class:`DbdeWriter`'s, and
+    :func:`~dbde_tpu_torch.parallel.write_video_sharded`'s for one call).
 
     At most one batch waits behind the one being written: :meth:`put`
     blocks until the thread takes the waiting one.  The thread calls
@@ -165,10 +166,12 @@ class _Sink:
     batches are held, whether written, being written or queued.  A failed
     write stops all later ones; its error is raised by the next
     :meth:`put`, or by :meth:`close` where no ``put`` raised it.  Each
-    write is a span under the root ``writer.sink`` (:mod:`.trace`)."""
+    write is a span under the root ``root`` (:mod:`.trace`): ``writer.sink``
+    unless the writer names its own."""
 
-    def __init__(self, fd: int):
+    def __init__(self, fd: int, root: str = trace.SINK_ROOT):
         self._fd = fd
+        self._root = root
         self._jobs: queue.Queue = queue.Queue(maxsize=1)
         self._held: collections.deque = collections.deque()  # arrays of each batch handed over
         self._done: collections.deque = collections.deque()  # one entry a batch written or dropped
@@ -184,7 +187,7 @@ class _Sink:
                 return
             if self._error is None:
                 try:
-                    with trace.span(trace.SINK_ROOT):
+                    with trace.span(self._root):
                         _writev_all(self._fd, iov)
                 except BaseException as e:  # handed to the writer's thread
                     self._error = e

@@ -27,14 +27,15 @@ read roots (``reader.dispatch``, ``reader.materialize``,
 work of several threads that write or read at once adds up under the
 same roots.  ``DbdeWriter``'s sink thread opens a root of its own
 (``writer.sink``, outside the write roots: that time is off the writing
-thread's path).  The table empties itself when a span or counter, on any
-thread, finds a session recording after some thread last found none, so
-a session that follows work done unprofiled starts from nothing, and a
-thread that starts recording late empties nothing.  Two sessions back to
-back, with no span between them, add into one table: call :func:`reset`
-before the second.  :func:`totals` reads the table.  No span stays open
-across a ``yield``.  Kernel launches are counted in
-:data:`.ops.launch.LAUNCHES`, not here.
+thread's path); ``write_video_sharded``'s opens ``sharded.write``, so its
+writes lie under the root of the call they belong to.  The table empties
+itself when a span or counter, on any thread, finds a session recording
+after some thread last found none, so a session that follows work done
+unprofiled starts from nothing, and a thread that starts recording late
+empties nothing.  Two sessions back to back, with no span between them,
+add into one table: call :func:`reset` before the second.
+:func:`totals` reads the table.  No span stays open across a ``yield``.
+Kernel launches are counted in :data:`.ops.launch.LAUNCHES`, not here.
 
 torch's profiler puts ``record_function`` ranges into its trace from the
 thread that started the session alone, so the ``dbde:*`` ranges of other

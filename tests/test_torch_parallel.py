@@ -4,6 +4,8 @@ writer and the JAX package's sharded arrays; tolerance 0 throughout (the
 codec is integer-valued).  The cases mirror tests/test_parallel.py."""
 
 import struct
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -13,8 +15,9 @@ from dbde_tpu import ref_numpy as ref
 from dbde_tpu.parallel import encode_sharded as jax_encode_sharded
 from dbde_tpu.parallel import make_mesh as jax_make_mesh
 from dbde_tpu.parallel import sharding as jax_sharding
-from dbde_tpu_torch import write_video
+from dbde_tpu_torch import stream, write_video
 from dbde_tpu_torch.bench_core import make_content
+from dbde_tpu_torch.format import VIDEO_HEADER_BYTES
 from dbde_tpu_torch.graft_entry import dryrun_multichip
 from dbde_tpu_torch.ops import band
 from dbde_tpu_torch.parallel import sharding
@@ -359,7 +362,7 @@ def test_sharded_records_are_written_from_the_shards_copies(tmp_path, monkeypatc
     mesh = _mesh(2, 2)
     frames = _frames(B=5, H=32, W=24, seed=43)
     copied, written = [], []
-    copy_fields, writev_all = sharding._copy_fields, sharding._writev_all
+    copy_fields, writev_all = sharding._copy_fields, stream._writev_all
 
     def spy_copy_fields(*args):
         shards = copy_fields(*args)
@@ -374,7 +377,7 @@ def test_sharded_records_are_written_from_the_shards_copies(tmp_path, monkeypatc
         raise AssertionError("the writer assembled a payload matrix")
 
     monkeypatch.setattr(sharding, "_copy_fields", spy_copy_fields)
-    monkeypatch.setattr(sharding, "_writev_all", spy_writev_all)
+    monkeypatch.setattr(stream, "_writev_all", spy_writev_all)  # called by the sink thread
     monkeypatch.setattr(sharding, "assemble_payload_padded", no_assembly)
     p = tmp_path / "s.dbde"
     write_video_sharded(p, frames, mesh, frame_hz=7.0, batch_size=4)
@@ -386,6 +389,129 @@ def test_sharded_records_are_written_from_the_shards_copies(tmp_path, monkeypatc
                 assert isinstance(piece, bytes)
             else:
                 assert any(np.shares_memory(np.asarray(piece), a) for a in copied), k
+
+
+def _sink_threads() -> list:
+    return [t for t in threading.enumerate() if t.name == "dbde-sink" and t.is_alive()]
+
+
+def _on_a_thread(fn, seconds: float = 60.0):
+    """``fn()`` on a thread of its own, joined with a timeout, so that a
+    hung sink thread fails the test instead of hanging the suite; raises
+    what it raised."""
+    out = {}
+
+    def run():
+        try:
+            fn()
+        except BaseException as e:  # re-raised on the test's thread
+            out["error"] = e
+
+    worker = threading.Thread(target=run, daemon=True)
+    worker.start()
+    worker.join(timeout=seconds)
+    assert not worker.is_alive(), "write_video_sharded did not return"
+    if "error" in out:
+        raise out["error"]
+
+
+def test_sharded_write_overlaps_a_slow_sink(tmp_path, monkeypatch):
+    """A sink slower than the caller: batches queue behind the write, the
+    next batch is encoded while one is being written, at most two batches
+    are held, every write runs on the sink thread, and the file is still
+    write_video's byte for byte."""
+    mesh = _mesh(2, 2)
+    frames = _frames(B=20, H=32, W=24, seed=47)  # five batches of 4
+    writev, encode_shards, sink_class = stream._writev_all, sharding._encode_shards, sharding._Sink
+    writing, threads, overlapped, held, sinks = [], [], [], [], []
+
+    def slow(fd, iov):
+        threads.append(threading.current_thread().name)
+        writing.append(True)
+        time.sleep(0.05)  # before the write: the caller runs ahead
+        try:
+            return writev(fd, iov)
+        finally:
+            writing.pop()
+
+    def spy_encode(*args):
+        overlapped.append(bool(writing))
+        held.extend(len(sink._held) for sink in sinks)
+        return encode_shards(*args)
+
+    class Sink(sink_class):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            sinks.append(self)
+
+    p, single = tmp_path / "s.dbde", tmp_path / "single.dbde"
+    write_video(single, frames, frame_hz=7.0, device="cpu", batch_size=4)
+    monkeypatch.setattr(stream, "_writev_all", slow)
+    monkeypatch.setattr(sharding, "_encode_shards", spy_encode)
+    monkeypatch.setattr(sharding, "_Sink", Sink)
+    _on_a_thread(lambda: write_video_sharded(p, frames, mesh, frame_hz=7.0, batch_size=4))
+    assert p.read_bytes() == single.read_bytes() == ref.encode_video(list(frames), frame_hz=7.0)
+    assert threads == ["dbde-sink"] * 5
+    assert any(overlapped)  # a batch encoded while an earlier one was being written
+    assert max(held) == 2  # two batches at most: being written and queued
+    assert not _sink_threads()
+
+
+def test_sharded_write_raises_a_failed_writev(tmp_path, monkeypatch):
+    """The second batch's writev raises on the sink thread: the call raises
+    it, nothing later is written, the file holds the header and the first
+    batch's records, and the sink thread has ended."""
+    mesh = _mesh(2, 2)
+    frames = _frames(B=16, H=32, W=24, seed=53)  # four batches of 4
+    writev = stream._writev_all
+    calls = []
+
+    def failing(fd, iov):
+        calls.append(len(iov))
+        if len(calls) == 2:
+            raise OSError(28, "No space left on device")
+        return writev(fd, iov)
+
+    monkeypatch.setattr(stream, "_writev_all", failing)
+    p = tmp_path / "s.dbde"
+    with pytest.raises(OSError, match="No space left"):
+        _on_a_thread(lambda: write_video_sharded(p, frames, mesh, frame_hz=7.0, batch_size=4))
+    assert calls == [40, 40]  # nothing handed to writev after the failure
+    assert p.read_bytes() == ref.encode_video(list(frames[:4]), frame_hz=7.0)
+    assert not _sink_threads()
+
+
+@pytest.mark.parametrize("sink", ["writing", "failed"])
+def test_sharded_write_raises_the_callers_error(tmp_path, monkeypatch, sink):
+    """The second batch's encode raises while the first batch is with the
+    sink, which is still writing it or whose write failed: the call raises
+    the encode's error, not the sink's, once the sink thread has ended; a
+    sink still writing finishes the first batch."""
+    mesh = _mesh(2, 2)
+    frames = _frames(B=12, H=32, W=24, seed=59)  # three batches of 4
+    writev, encode_shards = stream._writev_all, sharding._encode_shards
+    encodes = []
+
+    def slow_or_failing(fd, iov):
+        time.sleep(0.05)
+        if sink == "failed":
+            raise OSError(5, "Input/output error")
+        return writev(fd, iov)
+
+    def failing_encode(*args):
+        encodes.append(1)
+        if len(encodes) == 2:
+            raise RuntimeError("encode failed")
+        return encode_shards(*args)
+
+    monkeypatch.setattr(stream, "_writev_all", slow_or_failing)
+    monkeypatch.setattr(sharding, "_encode_shards", failing_encode)
+    p = tmp_path / "s.dbde"
+    with pytest.raises(RuntimeError, match="encode failed"):
+        _on_a_thread(lambda: write_video_sharded(p, frames, mesh, frame_hz=7.0, batch_size=4))
+    assert not _sink_threads()
+    file = ref.encode_video(list(frames[:4]), frame_hz=7.0)
+    assert p.read_bytes() == (file if sink == "writing" else file[:VIDEO_HEADER_BYTES])
 
 
 def test_dryrun_multichip_on_cpu(capsys):

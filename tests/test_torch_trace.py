@@ -101,12 +101,14 @@ READER = {  # two dispatches fill the pipeline; the last two find the end
     ("reader.dispatch", "codec.decode_dispatch"): 3, ("reader.dispatch", "codec.put"): 3,
     ("reader.materialize", "reader.materialize"): 3,
 }
-SHARDED = {  # two batches of four shards each way
-    ("sharded.write", "sharded.write"): 1, ("sharded.write", "sharded.encode"): 2,
+SHARDED = {  # two batches of four shards each way; the writev runs on the call's sink thread
+    ("sharded.write", "sharded.write"): 3,  # the call and the sink thread's span a batch
+    ("sharded.write", "sharded.encode"): 2,
     ("sharded.write", "codec.stage"): 8, ("sharded.write", "codec.encode"): 8,
     ("sharded.write", "sharded.totals"): 2,
     ("sharded.write", "sharded.fields"): 2, ("sharded.write", "sharded.assemble"): 2,
     ("sharded.write", "stream.writev"): 2,
+    ("sharded.write", "writer.sink_wait"): 3,  # two hand-offs and the join
     ("sharded.dispatch", "sharded.dispatch"): 4, ("sharded.dispatch", "reader.parse"): 3,
     ("sharded.dispatch", "sharded.split"): 2, ("sharded.dispatch", "codec.decode_dispatch"): 8,
     ("sharded.materialize", "sharded.materialize"): 2,
@@ -154,6 +156,20 @@ def test_inplace_bytes_is_the_writev_less_headers_and_lengths(traced):
         "calls": 2}
 
 
+def test_sharded_write_records_nothing_under_writer_sink(frames, tmp_path):
+    """The sharded write's sink thread records under ``sharded.write``, the
+    root its metrics read, and nothing under ``DbdeWriter``'s sink root."""
+    mesh = make_mesh(2, 2, devices=[CPU] * 4)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        write_video_sharded(str(tmp_path / "s.dbde"), frames, mesh, frame_hz=100.0,
+                            batch_size=4)
+    table = trace.totals()
+    assert {root for root, _ in table} == {"sharded.write"}
+    assert table["sharded.write", "stream.writev_bytes"] == {
+        "value": os.path.getsize(tmp_path / "s.dbde") - VIDEO_HEADER_BYTES, "calls": 2}
+
+
 def test_inplace_bytes_leaves_out_a_copy(frames, tmp_path, monkeypatch):
     """Bands copied on the way to writev are not written in place: the
     counter reads 0 while the file is still exact."""
@@ -179,9 +195,11 @@ def test_self_time_within_total(traced):
 def test_spans_are_dbde_events_nested_in_their_roots(traced):
     events = [e for e in traced[1] if e.name.startswith(trace.PREFIX)]
     names = {e.name[len(trace.PREFIX):] for e in events}
-    # the profiler's trace holds its own thread's ranges: not the sink thread's
+    # the profiler's trace holds its own thread's ranges: not the sink
+    # threads' (DbdeWriter's root writer.sink; the sharded write's writev)
+    on_sinks = {("sharded.write", "stream.writev")}
     assert {name for (root, name), v in traced[0].items()
-            if "total_s" in v and root != trace.SINK_ROOT} <= names
+            if "total_s" in v and root != trace.SINK_ROOT and (root, name) not in on_sinks} <= names
     is_root = {e.name: e.name[len(trace.PREFIX):] in trace.WRITE_ROOTS + trace.READ_ROOTS
                for e in events}
     roots = [e.time_range for e in events if is_root[e.name]]
